@@ -1,0 +1,2 @@
+from .schedule import Schedule, cosine_beta_schedule, schedule_from_betas
+from .ddpm import cfg_sample, masked_mean_var

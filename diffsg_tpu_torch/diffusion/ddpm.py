@@ -1,0 +1,130 @@
+"""Classifier-free-guidance DDPM reverse sampler.
+
+Counterpart of ``diffsg_tpu/diffusion/ddpm.py::cfg_sample``. The reference
+numerics are kept:
+
+* the two CFG passes are folded into one forward of ``2B`` rows, rows
+  ``[0:B]`` unconditional (mask 0) and ``[B:2B]`` conditional (mask 1),
+  combined as ``(1 + omega) eps_cond - omega eps_uncond``;
+* the time MLP runs at batch 1 (``t_norm = i / T``, shape (1,));
+* ``y_{t-1} = (y_t - beta_t / sqrt(1 - abar_t) eps) / sqrt(alpha_t)
+  + (1 - abar_{t-1}) / (1 - abar_t) z``, with the **un-square-rooted**
+  variance ratio on ``z``, and ``z = 0`` for the last two steps (``i <= 1``);
+* in the first ``renorm_steps`` steps the state is re-standardized over the
+  whole batch tensor with the **unbiased** (ddof=1) variance, or over the
+  valid rows when ``valid_mask`` is given.
+
+Not ported yet: ``record_trace``, ``compute_dtype`` and ``guidance_fn``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from .schedule import Schedule
+
+# apply_fn(y_t, t_norm, cond, cond_mask) -> model output (B, D)
+ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def masked_mean_var(y: torch.Tensor, valid_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and unbiased variance over the valid rows (``valid_mask`` (B, 1),
+    1.0 real / 0.0 padding)."""
+    cnt = valid_mask.sum() * y.shape[1]
+    mean = (y * valid_mask).sum() / cnt
+    var = (valid_mask * (y - mean) ** 2).sum() / (cnt - 1.0)
+    return mean, var
+
+
+def _reverse_step(sched: Schedule, y_t: torch.Tensor, i: int, eps_cfg: torch.Tensor,
+                  z: Optional[torch.Tensor], T: int, renorm_steps: int,
+                  valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One reverse-diffusion update with the reference's coefficients;
+    ``z`` is None where the reference draws no noise."""
+    y_next = (y_t - sched.remove_noise_coeff[i] * eps_cfg) * sched.reciprocal_sqrt_alphas[i]
+    if z is not None:
+        prev = max(i - 1, 0)
+        noise_coeff = (1.0 - sched.alphas_cumprod[prev]) / (1.0 - sched.alphas_cumprod[i])
+        y_next = y_next + noise_coeff * z
+    if i > T - 1 - renorm_steps:
+        if valid_mask is None:
+            mean, var = y_next.mean(), y_next.var()
+        else:
+            mean, var = masked_mean_var(y_next, valid_mask)
+        y_next = (y_next - mean) / torch.sqrt(var)
+    return y_next
+
+
+@torch.no_grad()
+def cfg_sample(
+    apply_fn: ApplyFn,
+    sched: Schedule,
+    cond: torch.Tensor,
+    omega: float,
+    data_dim: int,
+    generator: Optional[torch.Generator] = None,
+    init_noise: Optional[torch.Tensor] = None,
+    step_noise: Optional[torch.Tensor] = None,
+    renorm_steps: int = 4,
+    valid_mask: Optional[torch.Tensor] = None,
+    parameterization: str = "eps",
+    skip_uncond: bool = False,
+) -> torch.Tensor:
+    """Batched CFG reverse sampler; returns ``y_0`` (B, data_dim).
+
+    Args:
+      apply_fn: the denoiser, ``apply_fn(y_t, t_norm, cond, cond_mask)``.
+      sched: coefficient table (defines T), on ``cond``'s device.
+      cond: (B, C) conditions.
+      omega: guidance scale.
+      data_dim: solution dimensionality D.
+      generator: draws the noise that is not supplied.
+      init_noise: optional (B, D) y_T.
+      step_noise: optional (T, B, D) per-step z; entry s is used at step
+        i = T-1-s, and the entries for i <= 1 are ignored.
+      renorm_steps: number of initial steps with batch re-standardization.
+      valid_mask: optional (B, 1) 1.0/0.0 mask restricting the
+        re-standardization statistics to the valid rows.
+      parameterization: "eps", "x0" or "v" — what the denoiser predicts.
+      skip_uncond: run only the conditional half (exact at omega == 0).
+    """
+    if parameterization not in ("eps", "x0", "v"):
+        raise ValueError(f"unknown parameterization {parameterization!r}")
+    B = cond.shape[0]
+    T = sched.T
+    dtype, dev = cond.dtype, cond.device
+    if init_noise is None or step_noise is None:
+        if generator is None:
+            raise ValueError("cfg_sample needs a generator when noise is not supplied")
+        if init_noise is None:
+            init_noise = torch.randn((B, data_dim), generator=generator, dtype=dtype, device=dev)
+        if step_noise is None:
+            step_noise = torch.randn((T, B, data_dim), generator=generator, dtype=dtype, device=dev)
+
+    if skip_uncond:
+        mask1 = torch.ones((B, 1), dtype=dtype, device=dev)
+
+        def net_cfg(y_t, t_norm):
+            return apply_fn(y_t, t_norm, cond, mask1)
+    else:
+        cond2 = torch.cat([cond, cond], dim=0)
+        mask2 = torch.cat([torch.zeros((B, 1), dtype=dtype, device=dev),
+                           torch.ones((B, 1), dtype=dtype, device=dev)], dim=0)
+
+        def net_cfg(y_t, t_norm):
+            eps2 = apply_fn(torch.cat([y_t, y_t], dim=0), t_norm, cond2, mask2)
+            return (1.0 + omega) * eps2[B:] - omega * eps2[:B]
+
+    y = init_noise
+    for s, i in enumerate(range(T - 1, -1, -1)):
+        t_norm = torch.full((1,), i, dtype=dtype, device=dev) / T
+        eps = net_cfg(y, t_norm)
+        if parameterization == "x0":
+            eps = (y - sched.sqrt_alphas_cumprod[i] * eps) / sched.sqrt_one_minus_alphas_cumprod[i]
+        elif parameterization == "v":
+            eps = sched.sqrt_one_minus_alphas_cumprod[i] * y + sched.sqrt_alphas_cumprod[i] * eps
+        z = step_noise[s] if i > 1 else None
+        y = _reverse_step(sched, y, i, eps, z, T, renorm_steps, valid_mask)
+    return y

@@ -1,0 +1,234 @@
+"""UNet1D — the classifier-free conditional denoiser, plain PyTorch.
+
+Counterpart of ``diffsg_tpu/models/unet1d.py``: a U-Net over feature
+vectors, where every op is a Linear, a per-row LayerNorm or a Swish and the
+"resolutions" are feature widths. Module names and parameter layouts are
+flax's (see ``utils/params.py``), so a ``diffsg_tpu.npz.v1`` checkpoint
+loads strictly.
+
+This module is the plain forward. ``models/unet1d_fused.py`` runs the same
+parameters with every ResidualBlock through the hand-written CUDA kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# torch nn.LayerNorm's epsilon, pinned in the JAX package too.
+_LN_EPS = 1e-5
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x)."""
+    return x * torch.sigmoid(x)
+
+
+class Dense(nn.Module):
+    """``y = x @ kernel + bias`` with flax's (in, out) kernel layout."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_dim, out_dim))
+        self.bias = nn.Parameter(torch.empty(out_dim))
+        bound = 1.0 / math.sqrt(in_dim)
+        nn.init.uniform_(self.kernel, -bound, bound)
+        nn.init.uniform_(self.bias, -bound, bound)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.kernel) + self.bias
+
+
+class LayerNorm(nn.Module):
+    """Per-row LayerNorm with flax's parameter names (``scale``, ``bias``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, (x.shape[-1],), self.scale, self.bias, _LN_EPS)
+
+
+class TimeEmbedding(nn.Module):
+    """Sinusoidal time embedding + 2-layer MLP. ``in_dim = proj_dim * 4``."""
+
+    def __init__(self, in_dim: int):
+        super().__init__()
+        self.in_dim = in_dim
+        self.lin1 = Dense(in_dim // 4, in_dim)
+        self.lin2 = Dense(in_dim, in_dim)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        half = self.in_dim // 8
+        freq = torch.exp(torch.arange(half, dtype=t.dtype, device=t.device)
+                         * -(math.log(10_000) / (half - 1)))
+        emb = t[:, None] * freq[None, :]
+        emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+        return self.lin2(swish(self.lin1(emb)))
+
+
+class ResidualBlock(nn.Module):
+    """3x (LayerNorm -> Swish -> Linear) with the time embedding added after
+    lin1 and the condition after lin2; a Linear shortcut iff widths differ."""
+
+    def __init__(self, in_dim: int, out_dim: int, time_dim: int, cond_dim: int):
+        super().__init__()
+        self.norm1 = LayerNorm(in_dim)
+        self.lin1 = Dense(in_dim, out_dim)
+        self.time_emb = Dense(time_dim, out_dim)
+        self.norm2 = LayerNorm(out_dim)
+        self.lin2 = Dense(out_dim, out_dim)
+        self.cond_emb = Dense(cond_dim, out_dim)
+        self.norm3 = LayerNorm(out_dim)
+        self.lin3 = Dense(out_dim, out_dim)
+        self.shortcut = Dense(in_dim, out_dim) if in_dim != out_dim else None
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        h = self.lin1(swish(self.norm1(x)))
+        h = h + self.time_emb(swish(t))
+        h = self.lin2(swish(self.norm2(h)))
+        h = h + self.cond_emb(swish(cond))
+        h = self.lin3(swish(self.norm3(h)))
+        if self.shortcut is not None:
+            x = self.shortcut(x)
+        return h + x
+
+
+class DownBlock(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int, time_dim: int, cond_dim: int):
+        super().__init__()
+        self.res = ResidualBlock(in_dim, out_dim, time_dim, cond_dim)
+
+    def forward(self, x, t, cond):
+        return self.res(x, t, cond)
+
+
+class UpBlock(nn.Module):
+    """Input is ``in_dim + out_dim`` wide: the skip concat."""
+
+    def __init__(self, in_dim: int, out_dim: int, time_dim: int, cond_dim: int):
+        super().__init__()
+        self.res = ResidualBlock(in_dim + out_dim, out_dim, time_dim, cond_dim)
+
+    def forward(self, x, t, cond):
+        return self.res(x, t, cond)
+
+
+class MiddleBlock(nn.Module):
+    def __init__(self, dim: int, time_dim: int, cond_dim: int):
+        super().__init__()
+        self.res1 = ResidualBlock(dim, dim, time_dim, cond_dim)
+        self.res2 = ResidualBlock(dim, dim, time_dim, cond_dim)
+
+    def forward(self, x, t, cond):
+        return self.res2(self.res1(x, t, cond), t, cond)
+
+
+class Resample(nn.Module):
+    """Plain Linear feature resize (both Up- and Downsample)."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.lin = Dense(in_dim, out_dim)
+
+    def forward(self, x):
+        return self.lin(x)
+
+
+def unet_topology(dims: Sequence[int], n_blocks: int) -> Tuple[List[str], List[str]]:
+    """Down/up module-kind lists ("block" or "resample"), index-aligned with
+    the ``down_{i}`` / ``up_{i}`` module names."""
+    n_res = len(dims)
+    down, up = [], []
+    for i in range(n_res):
+        down += ["block"] * n_blocks + ["resample"]
+        if i == n_res - 1:
+            down += ["block"] * n_blocks
+    for i in reversed(range(n_res)):
+        up += ["block"] * (n_blocks + 1) + ["resample"]
+        if i == 0:
+            up += ["block"] * (n_blocks + 1)
+    return down, up
+
+
+class UNet1D(nn.Module):
+    """The full denoiser. ``forward(x, t, cond, cond_mask)``: x (B, input_dim),
+    t (B,) or (1,) normalized time, cond (B, cond_dim), cond_mask (B, 1) with
+    1.0 = keep the condition, 0.0 = drop it.
+
+    Attention blocks are in no shipped configuration and are not ported.
+    """
+
+    def __init__(self, input_dim: int = 3, proj_dim: int = 16, cond_dim: int = 4,
+                 dims: Sequence[int] = (8, 4, 2),
+                 is_attn: Sequence[bool] = (False, False, False),
+                 middle_attn: bool = False, n_blocks: int = 2):
+        super().__init__()
+        if any(is_attn) or middle_attn:
+            raise NotImplementedError(
+                "attention blocks are not ported (no shipped config uses them)")
+        self.input_dim, self.proj_dim, self.cond_dim = input_dim, proj_dim, cond_dim
+        self.dims, self.n_blocks = tuple(dims), n_blocks
+        time_dim = proj_dim * 4
+        self.feature_proj = Dense(input_dim, proj_dim)
+        self.time_emb = TimeEmbedding(time_dim)
+
+        self.down_kinds, self.up_kinds = unet_topology(self.dims, n_blocks)
+        widths = [proj_dim] + list(self.dims)
+        self.down: List[nn.Module] = []
+        level = 0
+        for kind in self.down_kinds:
+            if kind == "block":
+                m = DownBlock(widths[level], widths[level], time_dim, cond_dim)
+            else:
+                m = Resample(widths[level], widths[level + 1])
+                level += 1
+            self.add_module(f"down_{len(self.down)}", m)
+            self.down.append(m)
+
+        self.middle = MiddleBlock(widths[level], time_dim, cond_dim)
+
+        self.up: List[nn.Module] = []
+        for kind in self.up_kinds:
+            if kind == "block":
+                m = UpBlock(widths[level], widths[level], time_dim, cond_dim)
+            else:
+                m = Resample(widths[level], widths[level - 1])
+                level -= 1
+            self.add_module(f"up_{len(self.up)}", m)
+            self.up.append(m)
+
+        self.norm = LayerNorm(proj_dim)
+        self.final = Dense(proj_dim, input_dim)
+
+    def forward(self, x, t, cond, cond_mask):
+        t = self.time_emb(t)
+        x = self.feature_proj(x)
+        cond = cond * cond_mask
+
+        h = [x]
+        for kind, m in zip(self.down_kinds, self.down):
+            x = m(x, t, cond) if kind == "block" else m(x)
+            h.append(x)
+
+        x = self.middle(x, t, cond)
+
+        for kind, m in zip(self.up_kinds, self.up):
+            if kind == "resample":
+                x = m(x)
+            else:
+                x = m(torch.cat([x, h.pop()], dim=1), t, cond)
+
+        return self.final(swish(self.norm(x)))
+
+
+def unet_msr(M: int = 3, proj_dim: int = 128, dims=(64, 32, 16, 8)) -> UNet1D:
+    """MSR config; M=3 or 80."""
+    return UNet1D(input_dim=M, proj_dim=proj_dim, cond_dim=M, dims=tuple(dims),
+                  is_attn=(False,) * len(dims), middle_attn=False, n_blocks=2)

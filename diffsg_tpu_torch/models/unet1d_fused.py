@@ -1,0 +1,65 @@
+"""UNet1D forward with every ResidualBlock through the fused kernel.
+
+Counterpart of ``diffsg_tpu/models/unet1d_pallas.py::unet_forward_pallas``.
+It runs the parameters of a :class:`models.unet1d.UNet1D`. The cheap parts
+stay in PyTorch as the JAX package left them to XLA: the time MLP (at the
+batch of ``t``, 1 in the sampler), the feature projection, the resamples,
+the skip concats, the final head, and each block's time and condition
+projections ``t_proj = swish(t_emb) @ W_t + b_t`` and
+``c_proj = swish(cond * mask) @ W_c + b_c``.
+
+Use ``unet_apply_fn(model, backend="fused")`` for the sampler's
+``apply_fn(y, t, cond, cond_mask)``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .unet1d import UNet1D, swish
+from ..ops.resblock import fused_residual_block, resblock_params_tuple
+
+ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def unet_forward_fused(model: UNet1D, y: torch.Tensor, t: torch.Tensor,
+                       cond: torch.Tensor, cond_mask: torch.Tensor) -> torch.Tensor:
+    """Full UNet1D forward with fused residual blocks."""
+    st = swish(model.time_emb(t))          # (Bt, 4*proj), shared by every block
+    sc = swish(cond * cond_mask)           # (B, cond_dim)
+
+    def run_block(res, x: torch.Tensor) -> torch.Tensor:
+        return fused_residual_block(x, res.time_emb(st), res.cond_emb(sc),
+                                    *resblock_params_tuple(res))
+
+    x = model.feature_proj(y)
+    h = [x]
+    for kind, m in zip(model.down_kinds, model.down):
+        x = run_block(m.res, x) if kind == "block" else m(x)
+        h.append(x)
+
+    x = run_block(model.middle.res1, x)
+    x = run_block(model.middle.res2, x)
+
+    for kind, m in zip(model.up_kinds, model.up):
+        if kind == "resample":
+            x = m(x)
+        else:
+            x = run_block(m.res, torch.cat([x, h.pop()], dim=1))
+
+    return model.final(swish(model.norm(x)))
+
+
+def unet_apply_fn(model: UNet1D, backend: str = "fused") -> ApplyFn:
+    """``apply_fn(y, t, cond, cond_mask)`` for the sampler.
+
+    backend: "plain" (the module's own forward) or "fused" (every residual
+    block through ``ops.resblock.fused_residual_block``).
+    """
+    if backend == "plain":
+        return model
+    if backend == "fused":
+        return lambda y, t, c, m: unet_forward_fused(model, y, t, c, m)
+    raise ValueError(f"unknown backend {backend!r}; use 'plain' or 'fused'")

@@ -1,0 +1,63 @@
+"""Build the port's CUDA kernels with one ``nvcc`` call and load them.
+
+Every ``csrc/*.cu`` goes into one shared library with a plain C interface,
+loaded with ``ctypes``; no PyTorch headers, so the build takes seconds. The
+library lands in ``build/diffsg_tpu_torch/`` under the repository root,
+named by a hash of the sources and flags, and is built at first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+_BUILD_DIR = _PKG.parent / "build" / "diffsg_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+#: Seconds the last build in this process took (None: nothing was built).
+BUILD_SECONDS: Optional[float] = None
+#: The compiler's report of the last build (ptxas registers, spills, smem).
+BUILD_LOG: str = ""
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return nvcc
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this source set has no
+    library yet."""
+    global _LIB, BUILD_SECONDS, BUILD_LOG
+    if _LIB is not None:
+        return _LIB
+    sources = sorted((_PKG / "csrc").glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.read_bytes())
+    so = _BUILD_DIR / f"libdiffsg_kernels_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        BUILD_SECONDS = time.perf_counter() - t0
+        BUILD_LOG = proc.stderr
+        os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
+    _LIB = ctypes.CDLL(str(so))
+    return _LIB

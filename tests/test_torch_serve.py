@@ -1,0 +1,82 @@
+"""The port's serving entry point on the CPU, its device rule, its launch
+counter, and the rule that it imports nothing of JAX."""
+
+import ast
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from diffsg_tpu_torch.ops import resblock
+from diffsg_tpu_torch.serve import Solver
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+# One intra-op thread: the tests run in several worker processes at once,
+# and PyTorch's per-process thread pools would contend for the same cores.
+torch.set_num_threads(1)
+
+CKPT = REPO / "ckpts" / "ddpm_msr_3c_T100"
+
+
+@pytest.fixture(scope="module")
+def solver():
+    return Solver.from_checkpoint(str(CKPT), task="msr", device="cpu")
+
+
+def _conditions(B, seed=0):
+    return np.random.default_rng(seed).uniform(0, 1, (B, 3)).astype(np.float32)
+
+
+def test_solve_is_feasible_and_seed_deterministic(solver):
+    X = _conditions(16)
+    W = solver.config["W"]
+    before = resblock.LAUNCHES
+    P = solver.solve(X, seed=3)
+    assert resblock.LAUNCHES == before  # the CPU path launches no kernel
+    assert P.shape == (16, 3) and np.isfinite(P).all() and (P >= 0).all()
+    np.testing.assert_allclose(P.sum(axis=1), W, rtol=0, atol=1e-4 * W)
+    np.testing.assert_array_equal(solver.solve(X, seed=3), P)
+    assert not np.array_equal(solver.solve(X, seed=4), P)
+
+
+def test_plain_and_fused_backends_agree(solver):
+    plain = Solver.from_checkpoint(str(CKPT), task="msr", device="cpu", backend="plain")
+    X = _conditions(16, seed=1)
+    # omega=0: no guidance to amplify the two forwards' reassociation.
+    np.testing.assert_allclose(plain.solve(X, omega=0.0), solver.solve(X, omega=0.0),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("option", ["best_of", "sampler", "n_steps"])
+def test_unported_solve_options_raise(solver, option):
+    with pytest.raises(TypeError, match=option):
+        solver.solve(_conditions(4), **{option: 2})
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card rule cannot be shown here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Solver.from_checkpoint(str(CKPT), task="msr")
+
+
+_FORBIDDEN = re.compile(r"^(jax|flax|diffsg_tpu)(\.|$)")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*(REPO / "diffsg_tpu_torch").rglob("*.py"),
+                                       REPO / "chip_smoke.py"]))
+def test_port_imports_no_jax(path):
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _FORBIDDEN.match(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
