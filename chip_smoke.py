@@ -6,12 +6,22 @@
 from the root of the repository, on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA (no JAX needed). It builds the CUDA kernels from
 ``diffsg_tpu_torch/csrc``, holds each kernel against its plain PyTorch
-version at the shapes of the serving path, drives that path
-(``serve.Solver`` on ``ckpts/ddpm_msr_3c_T100``: MSR-3c, T=100, omega=500)
-and checks its answers. Every phase prints one JSON line with the seconds
-since start; any failure raises and exits non-zero. The last three lines
-are the ``kernels`` summary, the card's name and power limit as
-``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
+version at the shapes of the serving paths, drives those paths and checks
+their answers:
+
+* MSR-3c (``ckpts/ddpm_msr_3c_T100``, DDPM T=100, omega=500) through
+  ``serve.Solver`` with the ``fused`` backend (every residual block one
+  launch of ``csrc/resblock.cu``) and the ``mega`` backend (every forward
+  one launch of ``csrc/mega.cu``), and through ``cfg_sample`` with the mega
+  forward in bfloat16;
+* NU (``ckpts/ddpm_nu_3u_aug32_s8c``, task ``nu_direct``, DDIM-3, omega
+  0.125) through ``serve.Solver`` with the ``mega`` backend at B = 524,288,
+  and held to the JAX package's answer on the same inputs.
+
+Every phase prints one JSON line with the seconds since start; any failure
+raises and exits non-zero. The last three lines are the ``kernels``
+summary, the card's name and power limit as ``nvidia-smi`` gives them, and
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -24,18 +34,30 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "ckpts", "ddpm_msr_3c_T100")
+NU_CKPT = os.path.join(REPO, "ckpts", "ddpm_nu_3u_aug32_s8c")
 T_START = time.perf_counter()
 
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth.
+# cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 ROWS = 16_384          # 2B rows of the CFG fold at B = 8,192
 SERVE_B = 8_192
+NU_B = 524_288         # the JAX package's production NU batch (bench.py)
+NU_OMEGA, NU_STEPS = 0.125, 3
 KERNEL_ATOL = 1e-4     # f32, TF32 off, summation order over <= 256 terms
 FORWARD_RTOL = 1e-4    # of the output's max magnitude, through 27 blocks
+BF16_MEAN_SHARE = 0.25  # bf16 kernel vs plain: mean error against bf16's own
 RESBLOCK_REPLACES = "diffsg_tpu/ops/pallas_kernels.py:71"
 RESBLOCK_SOURCE = "diffsg_tpu_torch/csrc/resblock.cu"
+MEGA_REPLACES = "diffsg_tpu/ops/pallas_mega.py:131"
+MEGA_SOURCE = "diffsg_tpu_torch/csrc/mega.cu"
+# Mean nu_rate of the JAX package on the nu_vs_jax inputs (B = 4,096
+# conditions and y_T from np.random.default_rng(0), DDIM-3, omega 0.125,
+# flax forward, nu_direct decode), computed on the CPU by
+# tests/test_torch_nu.py::test_nu_vs_jax_constant, which holds this number.
+NU_JAX_MEAN_RATE = 0.00042744530946947634
 
 
 def emit(phase: str, **fields) -> None:
@@ -90,6 +112,7 @@ def graph_ms(fn, reps: int = 50, replays: int = 5) -> float:
         graph.replay()
     end.record()
     end.synchronize()
+    del graph
     return start.elapsed_time(end) / (reps * replays)
 
 
@@ -105,6 +128,41 @@ def resblock_bound(rows: int, t_rows: int, din: int, dout: int, shortcut: bool):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def mega_work(packed, rows: int):
+    """(multiply-adds per row, batch-1 multiply-adds, bytes) of one mega
+    forward at ``rows`` rows: every product of the table per row, each
+    block's time projection once, and each input, weight and output moved
+    once."""
+    from diffsg_tpu_torch.ops import mega
+
+    per_row = once = 0
+    C = packed.cond_dim
+    for r in packed.table.cpu().tolist():
+        din, dout = r[mega.K_IN], r[mega.K_OUT]
+        if r[mega.K_KIND] == mega.BLOCK:
+            per_row += din * dout + 2 * dout * dout + C * dout
+            per_row += din * dout if r[mega.K_FLAGS] & mega.F_SHORTCUT else 0
+            once += packed.time_dim * dout
+        else:
+            per_row += din * dout
+    size = packed.weights.element_size()
+    nbytes = (size * (rows * (packed.input_dim + C) + packed.time_dim + packed.weights.numel())
+              + 4 * rows * packed.input_dim)
+    return per_row, once, nbytes
+
+
+def mega_bound(packed, rows: int):
+    """(bound_ms, bound_by): operations at the float32 SIMT peak (the bf16
+    tensor-core peak for bf16 weights) against bytes at HBM bandwidth."""
+    import torch
+
+    per_row, once, nbytes = mega_work(packed, rows)
+    peak = PEAK_BF16_FLOPS if packed.weights.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops = 2 * (rows * per_row + once) / peak * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -115,8 +173,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from diffsg_tpu_torch.baselines import waterfilling
-    from diffsg_tpu_torch.models import unet_forward_fused
-    from diffsg_tpu_torch.ops import _build, msr_sum_rate, resblock
+    from diffsg_tpu_torch.diffusion import cfg_sample, ddim_sample
+    from diffsg_tpu_torch.models import unet_apply_fn, unet_forward_fused
+    from diffsg_tpu_torch.ops import _build, mega, msr_sum_rate, nu_rate, resblock
     from diffsg_tpu_torch.ops.resblock import (fused_residual_block, resblock_params_tuple,
                                                resblock_reference)
     from diffsg_tpu_torch.serve import Solver
@@ -125,6 +184,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    def zero_counts():
+        resblock.LAUNCHES = 0
+        mega.LAUNCHES = 0
+
     # -- device ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -132,10 +195,10 @@ def main() -> int:
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # -- build ----------------------------------------------------------------
+    # -- build: one nvcc per source, all started together ------------------------
     _build.library()
     ptxas = [ln.strip() for ln in _build.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit("build", nvcc_s=_build.BUILD_SECONDS, cached=_build.BUILD_SECONDS is None,
          flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas)
 
@@ -168,10 +231,10 @@ def main() -> int:
             err = float((out - ref).abs().max())
             check(bool(torch.isfinite(out).all()), f"finite kernel output at {din}->{dout}")
             check(err <= KERNEL_ATOL, f"kernel {din}->{dout} rows {rows}: max abs err {err}")
-            k_ms = graph_ms(lambda: fused_residual_block(*args))
-            p_ms = graph_ms(lambda: resblock_reference(*args))
-            k_call_ms = cuda_ms(lambda: fused_residual_block(*args))
-            p_call_ms = cuda_ms(lambda: resblock_reference(*args))
+            k_ms = graph_ms(lambda: fused_residual_block(*args), reps=20, replays=3)
+            p_ms = graph_ms(lambda: resblock_reference(*args), reps=20, replays=3)
+            k_call_ms = cuda_ms(lambda: fused_residual_block(*args), reps=20)
+            p_call_ms = cuda_ms(lambda: resblock_reference(*args), reps=20)
         bound_ms, bound_by = resblock_bound(rows, t_rows, din, dout, sc)
         row = {"in": din, "out": dout, "shortcut": sc, "rows": rows, "t_rows": t_rows,
                "per_forward": per_forward if rows == ROWS else 0, "max_abs_err": err,
@@ -180,32 +243,109 @@ def main() -> int:
         per_shape.append(row)
         emit("kernel", **row)
 
-    # -- forward: the checkpoint's full forward at 2B rows, fused vs plain -----
+    # -- mega_kernel: the whole-UNet kernel against its plain version ----------
+    nu_solver = Solver.from_checkpoint(NU_CKPT, task="nu_direct", backend="mega")
+    nu_model = nu_solver.model
+    mega_cases = [("msr", model, ROWS, torch.float32), ("msr", model, ROWS, torch.bfloat16),
+                  ("nu", nu_model, 2 * NU_B, torch.float32),
+                  ("nu", nu_model, 2 * NU_B, torch.bfloat16),
+                  ("msr", model, 1000, torch.float32), ("nu", nu_model, 1000, torch.bfloat16)]
+    mega_rows = []
+    for net, net_model, rows, dtype in mega_cases:
+        cd = None if dtype == torch.float32 else dtype
+        y = torch.tensor(rng.normal(size=(rows, net_model.input_dim)), dtype=torch.float32,
+                         device=dev).to(dtype)
+        cond = torch.tensor(rng.uniform(0, 1, (rows, net_model.cond_dim)), dtype=torch.float32,
+                            device=dev).to(dtype)
+        mask = (torch.arange(rows, device=dev) >= rows // 2).to(dtype)[:, None]
+        t = torch.full((1,), 0.37, device=dev).to(dtype)
+        packed = mega.pack_params(net_model, dtype)
+        with torch.no_grad():
+            ys, sc, st = mega.mega_inputs(net_model, y, t, cond, mask, cd)
+            out = mega.unet_forward_mega(net_model, y, t, cond, mask, cd, packed)
+            torch.cuda.synchronize()
+            launch = mega.last_launch()
+            ref = mega.unet_forward_mega_reference(net_model, y, t, cond, mask, cd)
+            scale = float(ref.abs().max())
+            diff = (out - ref).abs()
+            err, mean_err = float(diff.max()), float(diff.mean())
+            check(bool(torch.isfinite(out).all()), f"finite mega output, {net} {dtype} {rows}")
+            if cd is None:
+                tol, mean_tol = FORWARD_RTOL * scale, None
+            else:
+                # bf16: the kernel may flip a rounding that the plain version
+                # does not, but it must stay closer to the plain version than
+                # bf16 rounding moves the plain version from float32.
+                noise = (ref - mega.unet_forward_mega_reference(
+                    net_model, y.float(), t.float(), cond.float(), mask.float())).abs()
+                tol, mean_tol = float(noise.max()), BF16_MEAN_SHARE * float(noise.mean())
+                check(mean_err <= mean_tol, f"mega {net} bf16 rows {rows}: mean abs err "
+                                            f"{mean_err} > {mean_tol}")
+                del noise
+            check(err <= tol, f"mega {net} {dtype} rows {rows}: max abs err {err} > {tol}")
+            big = rows > ROWS
+            reps, replays = (3, 2) if big else (20, 3)
+            k_ms = graph_ms(lambda: mega.launch_mega(packed, ys, sc, st), reps, replays)
+            tile_ms = {tr: graph_ms(lambda: mega.launch_mega(packed, ys, sc, st, tr), reps,
+                                    replays)
+                       for tr in (16, 32) if rows >= ROWS}
+            w_ms = graph_ms(lambda: mega.unet_forward_mega(net_model, y, t, cond, mask, cd,
+                                                           packed), reps, replays)
+            p_ms = graph_ms(lambda: mega.unet_forward_mega_reference(net_model, y, t, cond,
+                                                                     mask, cd), reps, replays)
+            call_ms = cuda_ms(lambda: mega.unet_forward_mega(net_model, y, t, cond, mask, cd,
+                                                             packed), reps=10 if big else 20)
+            del ref, out, diff
+        bound_ms, bound_by = mega_bound(packed, rows)
+        per_row, once, nbytes = mega_work(packed, rows)
+        row = {"net": net, "dtype": str(dtype).replace("torch.", ""), "rows": rows,
+               "max_abs_err": err, "tol": tol, "mean_abs_err": mean_err, "mean_tol": mean_tol,
+               "out_max_abs": scale, "kernel_ms": k_ms, "tile_ms": tile_ms,
+               "wrapper_ms": w_ms, "call_ms": call_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "of_bound": bound_ms / k_ms, "library_ms": None,
+               "macs_per_row": per_row, "batch1_macs": once, "bytes": nbytes, **launch}
+        mega_rows.append(row)
+        emit("mega_kernel", **row)
+        torch.cuda.empty_cache()
+
+    # -- forward: the checkpoint's full forward at 2B rows, every backend ------
     y = torch.tensor(rng.normal(size=(ROWS, 3)), dtype=torch.float32, device=dev)
     cond = torch.tensor(rng.uniform(0, 1, (ROWS, 3)), dtype=torch.float32, device=dev)
     mask = torch.cat([torch.zeros(ROWS // 2, 1), torch.ones(ROWS // 2, 1)]).to(dev)
     t = torch.full((1,), 0.37, device=dev)
+    mega_apply = unet_apply_fn(model, "mega")
     with torch.no_grad():
-        before = resblock.LAUNCHES
+        zero_counts()
         fused = unet_forward_fused(model, y, t, cond, mask)
         torch.cuda.synchronize()
-        fwd_launches = resblock.LAUNCHES - before
+        fwd_launches = resblock.LAUNCHES
+        megafwd = mega_apply(y, t, cond, mask)
+        torch.cuda.synchronize()
+        mega_fwd_launches = mega.LAUNCHES
         plain = model(y, t, cond, mask)
         scale = float(plain.abs().max())
         fwd_err = float((fused - plain).abs().max())
+        mega_fwd_err = float((megafwd - plain).abs().max())
         fused_fwd_ms = graph_ms(lambda: unet_forward_fused(model, y, t, cond, mask), reps=10)
+        mega_fwd_ms = graph_ms(lambda: mega_apply(y, t, cond, mask), reps=10)
         plain_fwd_ms = graph_ms(lambda: model(y, t, cond, mask), reps=10)
         fused_call_ms = cuda_ms(lambda: unet_forward_fused(model, y, t, cond, mask), reps=20)
+        mega_call_ms = cuda_ms(lambda: mega_apply(y, t, cond, mask), reps=20)
         plain_call_ms = cuda_ms(lambda: model(y, t, cond, mask), reps=20)
-    check(fwd_launches == 27, f"27 kernel launches per forward, counted {fwd_launches}")
-    check(bool(torch.isfinite(fused).all()), "finite forward")
-    check(fwd_err <= FORWARD_RTOL * scale, f"forward max abs err {fwd_err} vs scale {scale}")
+    check(fwd_launches == 27, f"27 fused launches per forward, counted {fwd_launches}")
+    check(mega_fwd_launches == 1, f"1 mega launch per forward, counted {mega_fwd_launches}")
+    check(bool(torch.isfinite(fused).all()) and bool(torch.isfinite(megafwd).all()),
+          "finite forward")
+    check(fwd_err <= FORWARD_RTOL * scale, f"fused forward max abs err {fwd_err} vs {scale}")
+    check(mega_fwd_err <= FORWARD_RTOL * scale, f"mega forward max abs err {mega_fwd_err}")
     kernel_ms_per_fwd = sum(r["kernel_ms"] * r["per_forward"] for r in per_shape)
-    emit("forward", rows=ROWS, launches=fwd_launches, max_abs_err=fwd_err, out_max_abs=scale,
-         fused_ms=fused_fwd_ms, plain_ms=plain_fwd_ms, kernel_ms_sum=kernel_ms_per_fwd,
-         fused_call_ms=fused_call_ms, plain_call_ms=plain_call_ms)
+    emit("forward", rows=ROWS, launches=fwd_launches, mega_launches=mega_fwd_launches,
+         max_abs_err=fwd_err, mega_max_abs_err=mega_fwd_err, out_max_abs=scale,
+         fused_ms=fused_fwd_ms, mega_ms=mega_fwd_ms, plain_ms=plain_fwd_ms,
+         kernel_ms_sum=kernel_ms_per_fwd, fused_call_ms=fused_call_ms,
+         mega_call_ms=mega_call_ms, plain_call_ms=plain_call_ms)
 
-    # -- serve: the main path, Solver.solve on the card ------------------------
+    # -- MSR-3c serving: fused, mega, mega in bf16, plain ----------------------
     cfg = solver.config
     W = cfg["W"]
     X = rng.uniform(0, 1, (SERVE_B, 3)).astype(np.float32)
@@ -221,52 +361,174 @@ def main() -> int:
         p = torch.tensor(P, device=dev)
         return float((solver.task.objective(p, g, cfg) / rate_opt).mean())
 
-    resblock.LAUNCHES = 0
-    requests = []
-    for seed in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        P = solver.solve(X, seed=seed)
-        torch.cuda.synchronize()
-        requests.append({"seed": seed, "s": time.perf_counter() - t0})
-        last_P = P
-        requests[-1]["ratio"] = score(P)
-    serve_launches = resblock.LAUNCHES
-    check(serve_launches == 3 * 2700, f"2,700 launches per request, counted {serve_launches}")
-    for r in requests:
-        check(r["ratio"] >= 0.99, f"mean waterfilling ratio {r['ratio']} < 0.99")
+    def serve(solve, seeds):
+        """Requests timed on the host clock around a synchronize; the
+        launches are counted from 0 over exactly these requests."""
+        zero_counts()
+        out = []
+        for seed in seeds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            P = solve(seed)
+            torch.cuda.synchronize()
+            out.append({"seed": seed, "s": time.perf_counter() - t0, "P": P})
+        return out, resblock.LAUNCHES, mega.LAUNCHES
 
-    plain_solver = Solver.from_checkpoint(CKPT, task="msr", backend="plain")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    P_plain = plain_solver.solve(X, seed=2)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    plain_ratio = score(P_plain)
-    check(abs(plain_ratio - requests[-1]["ratio"]) <= 1e-3,
-          f"fused ratio {requests[-1]['ratio']} vs plain {plain_ratio}")
-    timed = [r["s"] for r in requests[1:]]   # request 0 is the warm one
+    def rate_per_s(reqs, B):
+        timed = [r["s"] for r in reqs[1:]] or [reqs[0]["s"]]   # request 0 warms up
+        return B / float(np.median(timed))
+
+    def public(reqs, metric):
+        return [{"seed": r["seed"], "s": r["s"], metric: r[metric]} for r in reqs]
+
+    fused_reqs, n_fused, n_mega = serve(lambda s: solver.solve(X, seed=s), range(2))
+    check(n_fused == 2 * 2700 and n_mega == 0,
+          f"fused path: 2,700 resblock launches per request and no mega, counted "
+          f"{n_fused} and {n_mega}")
+    for r in fused_reqs:
+        r["ratio"] = score(r["P"])
+        check(r["ratio"] >= 0.99, f"fused mean waterfilling ratio {r['ratio']} < 0.99")
     emit("serve", B=SERVE_B, T=solver.sched.T, omega=solver.task.default_omega,
-         launches=serve_launches, requests=requests,
-         solutions_per_s=SERVE_B / float(np.median(timed)),
-         plain_s=plain_s, plain_solutions_per_s=SERVE_B / plain_s, plain_ratio=plain_ratio,
-         max_abs_power_diff_plain=float(np.abs(P_plain - last_P).max()))
+         launches=n_fused, requests=public(fused_reqs, "ratio"),
+         solutions_per_s=rate_per_s(fused_reqs, SERVE_B))
 
-    # -- kernels: one line per kernel, per forward of the serving path ---------
-    main = [r for r in per_shape if r["per_forward"]]
+    mega_solver = Solver(solver.task, model, solver.sched, cfg, backend="mega")
+    mega_reqs, n_fused, n_mega = serve(lambda s: mega_solver.solve(X, seed=s), range(3))
+    check(n_mega == 3 * 100 and n_fused == 0,
+          f"mega path: 100 mega launches per request and no resblock, counted {n_mega} "
+          f"and {n_fused}")
+    serve_msr_mega_launches = n_mega
+    for r in mega_reqs:
+        r["ratio"] = score(r["P"])
+        check(r["ratio"] >= 0.99, f"mega mean waterfilling ratio {r['ratio']} < 0.99")
+    for fr, mr in zip(fused_reqs, mega_reqs):
+        check(abs(fr["ratio"] - mr["ratio"]) <= 1e-3,
+              f"seed {fr['seed']}: fused ratio {fr['ratio']} vs mega {mr['ratio']}")
+    emit("serve_msr_mega", B=SERVE_B, T=solver.sched.T, omega=solver.task.default_omega,
+         launches=n_mega, requests=public(mega_reqs, "ratio"),
+         solutions_per_s=rate_per_s(mega_reqs, SERVE_B),
+         max_abs_power_diff_fused=float(np.abs(mega_reqs[0]["P"] - fused_reqs[0]["P"]).max()))
+
+    bf16_apply = unet_apply_fn(model, "mega", compute_dtype=torch.bfloat16)
+    cond_msr = torch.as_tensor(X, device=dev)
+
+    @torch.inference_mode()
+    def solve_bf16(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        flat = torch.randn((SERVE_B, solver.sched.T + 1, 3), generator=gen, device=dev)
+        y0 = cfg_sample(bf16_apply, solver.sched, cond_msr, solver.task.default_omega, 3,
+                        init_noise=flat[:, 0], step_noise=flat[:, 1:].transpose(0, 1),
+                        compute_dtype=torch.bfloat16)
+        return solver.task.decode(y0, cfg).cpu().numpy()
+
+    bf16_reqs, n_fused, n_mega = serve(solve_bf16, range(2))
+    check(n_mega == 2 * 100 and n_fused == 0,
+          f"mega bf16 path: 100 launches per request, counted {n_mega} and {n_fused}")
+    serve_msr_bf16_launches = n_mega
+    for r in bf16_reqs:
+        r["ratio"] = score(r["P"])
+        check(r["ratio"] >= 0.99, f"bf16 mean waterfilling ratio {r['ratio']} < 0.99")
+    emit("serve_msr_mega_bf16", B=SERVE_B, T=solver.sched.T, omega=solver.task.default_omega,
+         launches=n_mega, requests=public(bf16_reqs, "ratio"),
+         solutions_per_s=rate_per_s(bf16_reqs, SERVE_B),
+         f32_ratio_same_seeds=[r["ratio"] for r in mega_reqs[:2]])
+
+    plain_solver = Solver(solver.task, model, solver.sched, cfg, backend="plain")
+    plain_reqs, n_fused, n_mega = serve(lambda s: plain_solver.solve(X, seed=s), [1])
+    check(n_fused == 0 and n_mega == 0, "the plain backend launches no kernel")
+    plain_ratio = score(plain_reqs[0]["P"])
+    check(abs(plain_ratio - fused_reqs[1]["ratio"]) <= 1e-3,
+          f"fused ratio {fused_reqs[1]['ratio']} vs plain {plain_ratio}")
+    emit("serve_msr_plain", B=SERVE_B, request_s=plain_reqs[0]["s"], ratio=plain_ratio,
+         solutions_per_s=SERVE_B / plain_reqs[0]["s"],
+         max_abs_power_diff_fused=float(np.abs(plain_reqs[0]["P"] - fused_reqs[1]["P"]).max()))
+    del fused_reqs, mega_reqs, bf16_reqs, plain_reqs
+
+    # -- serve_nu: NU DDIM-3 at B = 524,288 through the mega backend ------------
+    ncfg = nu_solver.config
+    XN = rng.uniform(0, 1, (NU_B, 6)).astype(np.float32)
+    users = torch.tensor(nu_solver.task.unnormalize_x(XN, ncfg), dtype=torch.float32,
+                         device=dev)
+
+    def nu_score(S: np.ndarray) -> float:
+        check(S.shape == (NU_B, 5), f"NU solution shape {S.shape}")
+        check(bool(np.isfinite(S).all()), "finite NU solutions")
+        xy = S[:, :2]
+        check(bool(((xy >= 0) & (xy <= 400)).all()), "0 <= x, y <= 400 on every row")
+        check(bool((S[:, 2:] >= 0).all()), "p >= 0 on every row")
+        gap = float(np.abs(S[:, 2:].sum(axis=1) - 18.0).max())
+        check(gap <= 1e-4 * 18.0, f"|sum p - 18| = {gap} on some row")
+        return float(nu_rate(torch.tensor(S, device=dev), users).mean())
+
+    def nu_solve(s_):
+        return lambda seed: s_.solve(XN, omega=NU_OMEGA, sampler="ddim", n_steps=NU_STEPS,
+                                     seed=seed)
+
+    nu_reqs, n_fused, n_mega = serve(nu_solve(nu_solver), range(3))
+    check(n_mega == 3 * NU_STEPS and n_fused == 0,
+          f"NU path: {NU_STEPS} mega launches per request, counted {n_mega} and {n_fused}")
+    serve_nu_launches = n_mega
+    for r in nu_reqs:
+        r["rate"] = nu_score(r["P"])
+    nu_plain_solver = Solver(nu_solver.task, nu_model, nu_solver.sched, ncfg, backend="plain")
+    nu_plain, _, _ = serve(nu_solve(nu_plain_solver), [0])
+    nu_plain_rate = nu_score(nu_plain[0]["P"])
+    rel = abs(nu_reqs[0]["rate"] - nu_plain_rate) / nu_plain_rate
+    check(rel <= 1e-3, f"NU mean rate mega {nu_reqs[0]['rate']} vs plain {nu_plain_rate}")
+    emit("serve_nu", B=NU_B, T=nu_solver.sched.T, steps=NU_STEPS, omega=NU_OMEGA,
+         launches=n_mega, requests=public(nu_reqs, "rate"),
+         solutions_per_s=rate_per_s(nu_reqs, NU_B), plain_s=nu_plain[0]["s"],
+         plain_solutions_per_s=NU_B / nu_plain[0]["s"], plain_rate=nu_plain_rate,
+         rel_rate_diff_plain=rel,
+         max_abs_diff_plain=float(np.abs(nu_plain[0]["P"] - nu_reqs[0]["P"]).max()))
+    del nu_reqs, nu_plain
+
+    # -- nu_vs_jax: the card's end-to-end answer against the JAX package's -----
+    ref_rng = np.random.default_rng(0)
+    XJ = ref_rng.uniform(0, 1, (4096, 6)).astype(np.float32)
+    init = ref_rng.normal(size=(4096, 5)).astype(np.float32)
+    zero_counts()
+    with torch.inference_mode():
+        y0 = ddim_sample(unet_apply_fn(nu_model, "mega"), nu_solver.sched,
+                         torch.tensor(XJ, device=dev), NU_OMEGA, 5, n_steps=NU_STEPS,
+                         init_noise=torch.tensor(init, device=dev))
+        dec = nu_solver.task.decode(y0, ncfg)
+        rate = float(nu_rate(dec, torch.tensor(nu_solver.task.unnormalize_x(XJ, ncfg),
+                                               dtype=torch.float32, device=dev)).mean())
+    check(mega.LAUNCHES == NU_STEPS, f"nu_vs_jax: {NU_STEPS} mega launches, {mega.LAUNCHES}")
+    rel = abs(rate - NU_JAX_MEAN_RATE) / NU_JAX_MEAN_RATE
+    check(rel <= 1e-3, f"NU mean rate {rate} vs the JAX package's {NU_JAX_MEAN_RATE}")
+    emit("nu_vs_jax", B=4096, mean_rate=rate, jax_mean_rate=NU_JAX_MEAN_RATE, rel_diff=rel)
+
+    # -- kernels: one line per kernel ---------------------------------------------
+    main_shapes = [r for r in per_shape if r["per_forward"]]
     bounds = {}
-    for r in main:
+    for r in main_shapes:
         bounds[r["bound_by"]] = bounds.get(r["bound_by"], 0.0) + r["bound_ms"] * r["per_forward"]
-    print(json.dumps({"kernels": [{
-        "name": "fused_residual_block", "route": "cuda", "source": RESBLOCK_SOURCE,
-        "replaces": RESBLOCK_REPLACES, "launches": serve_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in per_shape),
-        "max_err": max(r["max_abs_err"] for r in per_shape),
-        "ms": kernel_ms_per_fwd,
-        "plain_ms": sum(r["plain_ms"] * r["per_forward"] for r in main),
-        "bound_ms": sum(bounds.values()), "bound_by": max(bounds, key=bounds.get),
-        "library_ms": None,
-        "per": f"one forward: the 27 launches at {ROWS} rows"}]}), flush=True)
+    msr_f32 = mega_rows[0]
+    print(json.dumps({"kernels": [
+        {"name": "fused_residual_block", "route": "cuda", "source": RESBLOCK_SOURCE,
+         "replaces": RESBLOCK_REPLACES, "launches": 2 * 2700,
+         "max_abs_err": max(r["max_abs_err"] for r in per_shape),
+         "ms": kernel_ms_per_fwd,
+         "plain_ms": sum(r["plain_ms"] * r["per_forward"] for r in main_shapes),
+         "bound_ms": sum(bounds.values()), "bound_by": max(bounds, key=bounds.get),
+         "library_ms": None,
+         "per": f"one MSR-3c forward: the 27 launches at {ROWS} rows; launches over the "
+                f"2 fused serving requests"},
+        {"name": "unet_forward_mega", "route": "cuda", "source": MEGA_SOURCE,
+         "replaces": MEGA_REPLACES,
+         "launches": serve_msr_mega_launches + serve_msr_bf16_launches + serve_nu_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in mega_rows),
+         "ms": msr_f32["kernel_ms"], "plain_ms": msr_f32["plain_ms"],
+         "bound_ms": msr_f32["bound_ms"], "bound_by": msr_f32["bound_by"], "library_ms": None,
+         "per": f"one MSR-3c float32 forward at {ROWS} rows; launches over serve_msr_mega "
+                f"({serve_msr_mega_launches}), serve_msr_mega_bf16 ({serve_msr_bf16_launches}) "
+                f"and serve_nu ({serve_nu_launches})",
+         "cases": [{k: r[k] for k in ("net", "dtype", "rows", "max_abs_err", "kernel_ms",
+                                      "plain_ms", "bound_ms", "bound_by")}
+                   for r in mega_rows]},
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

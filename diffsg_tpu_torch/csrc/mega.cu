@@ -1,0 +1,439 @@
+// Whole-UNet1D forward in one launch, float32 or bfloat16, for sm_90a.
+//
+// Replaces diffsg_tpu/ops/pallas_mega.py::unet_forward_mega (kernel body
+// _kernel_body). For every row it runs the whole denoiser: feature_proj; the
+// down blocks and resamples, pushing the skip stack; middle.res1 and res2;
+// the up blocks, each concatenating [x, skip] before norm1; the final
+// LN -> swish -> Linear. Each residual block computes
+//
+//   h   = dense(lin1, swish(LN1(x))) + dense(time_emb, st)
+//   h   = dense(lin2, swish(LN2(h))) + dense(cond_emb, sc)
+//   h   = dense(lin3, swish(LN3(h)))
+//   out = h + (dense(shortcut, x) when in != out, else x)
+//
+// st = swish(time MLP(t)) (1, 4 * proj) and sc = swish(cond * mask) (rows, C)
+// come in from the wrapper, as in the TPU kernel. In bfloat16 (T =
+// __nv_bfloat16) the rounding points are the TPU kernel's: LN statistics,
+// swish and each product's accumulation and bias add are float32 and the
+// result is rounded to bf16; the residual adds round to bf16; the output is
+// written as float32. In float32 every rounding is the identity. LN eps is
+// 1e-5 with a two-pass variance.
+//
+// Bound on an H100: operations. The MSR-3c net (1.54M parameters) does
+// 550,456 multiply-adds per row, 18.0 GFLOP at 2B = 16,384 rows: 0.27 ms at
+// the 67 TFLOP/s float32 SIMT peak, 18 us at the 989 TFLOP/s dense bf16
+// tensor-core peak. The NU net does 63,600 per row, 133 GFLOP at 2B =
+// 1,048,576 rows: 2.0 ms in float32, 0.13 ms in bf16. Activations move
+// 36-64 bytes per row, so bytes never bound it. This first design reaches
+// for neither peak: the products are SIMT FMAs in float32 for both types
+// (no tensor cores, no wgmma), and the weights are read from L2 through the
+// read-only path (6.2 MB f32 / 3.1 MB bf16 for MSR-3c, 0.5 MB for NU, against
+// 50 MB of L2) with no TMA staging.
+//
+// Design. A persistent grid: each CTA of 256 threads walks tiles of R rows
+// (R = 32 or 16, chosen from the per-row shared-memory footprint) and keeps
+// everything row-shaped in dynamic shared memory: the y and sc tiles, the
+// current x (wide enough for the concat), the activated tile
+// a = swish(LN(.)), the block state h, and the whole skip stack (744 values
+// per row for MSR-3c). Each block's time projection depends on st only, so
+// a CTA computes all of them once (1,256 values for MSR-3c) before its first
+// tile. The ragged last tile is zero-filled (LN of a constant row stays
+// finite) and its stores are masked. The kernel walks a layer table built by
+// ops/mega.py::pack_params (kind, widths, flags, skip offsets and the
+// offsets of each weight in one packed buffer), so the net's shape is data.
+// Products: a thread owns one output column j for RPT rows of the tile,
+// reads W[k * N + j] (neighbouring threads, neighbouring columns) and
+// broadcasts four activations of a row from shared memory per four steps of
+// k; RPT is picked per layer so that the column threads cover N.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kLnEps = 1e-5f;
+constexpr int kTableCols = 32;
+constexpr size_t kSmemMax = 232448;       // 227 KB per CTA
+constexpr size_t kSmemTwoPerSm = 113 * 1024;
+
+// Layer kinds, flags and table columns: ops/mega.py keeps the same numbers.
+enum { FEATURE_PROJ = 0, BLOCK = 1, RESAMPLE = 2, HEAD = 3 };
+enum { F_SHORTCUT = 1, F_PUSH = 2, F_CONCAT = 4 };
+enum {
+  K_KIND, K_IN, K_OUT, K_FLAGS, K_SKIP_OFF, K_SKIP_W, K_TPROJ,
+  K_G1, K_BE1, K_W1, K_B1, K_WT, K_BT, K_G2, K_BE2, K_W2, K_B2, K_WC, K_BC,
+  K_G3, K_BE3, K_W3, K_B3, K_WS, K_BS
+};
+
+__device__ __forceinline__ float tof(float v) { return v; }
+__device__ __forceinline__ float tof(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T fromf(float v);
+template <> __device__ __forceinline__ float fromf<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 fromf<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);   // round to nearest even
+}
+
+// Round a float32 result to T and carry on in float32.
+template <typename T> __device__ __forceinline__ float rnd(float v) { return tof(fromf<T>(v)); }
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(q[0]), b = __bfloat1622float2(q[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float swish(float v) { return v / (1.0f + expf(-v)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Row strides (in elements) of the shared-memory tiles; every one is a
+// multiple of 4, so a row of four values is one aligned vector.
+struct Layout {
+  int ldy, lds, ldx, ldh;   // y tile, sc tile, x / a tiles, h tile
+  int time_pad, tproj_pad;  // st (T) and the time projections (float)
+};
+
+template <typename T>
+struct MegaArgs {
+  const T* y;        // (rows, D)
+  const T* sc;       // (rows, C)
+  const T* st;       // (time_dim,)
+  const T* w;        // packed weights
+  const int* table;  // (n_layers, kTableCols)
+  float* out;        // (rows, D)
+  int rows, n_layers, D, C, time_dim, skip_w, n_tproj;
+  Layout lay;
+};
+
+template <typename T>
+size_t smem_bytes(int R, int skip_w, const Layout& l) {
+  return sizeof(float) * l.tproj_pad +
+         sizeof(T) * (l.time_pad + (size_t)R * (l.ldy + l.lds + 2 * l.ldx + l.ldh + skip_w));
+}
+
+// What a product does with each finished sum acc = a[r, :] . W[:, j].
+enum { M_STORE, M_LIN1, M_LIN2, M_ADD, M_RES, M_OUT };
+
+template <typename T>
+struct Epilogue {
+  int mode;
+  const T* bias;        // (N,)
+  T* dst;               // tile written (or read and written) at [r * ldd + j]
+  int ldd;
+  const float* tproj;   // M_LIN1: this block's time projection (N,)
+  const T* sc;          // M_LIN2: the sc tile, its stride, width C, W_c, b_c
+  int lds, C;
+  const T* wc;
+  const T* bc;
+  int N;
+  float* gout;          // M_OUT: output rows of this tile, D wide
+  int nrows;
+
+  __device__ __forceinline__ void operator()(int r, int j, float acc) const {
+    const float v = rnd<T>(acc + tof(__ldg(bias + j)));
+    T* d = dst + r * ldd + j;
+    switch (mode) {
+      case M_STORE: *d = fromf<T>(v); break;
+      case M_LIN1: *d = fromf<T>(v + tproj[j]); break;
+      case M_LIN2: {
+        float c = 0.f;
+        for (int k = 0; k < C; ++k)
+          c = fmaf(tof(sc[r * lds + k]), tof(__ldg(wc + (size_t)k * N + j)), c);
+        *d = fromf<T>(v + rnd<T>(c + tof(__ldg(bc + j))));
+        break;
+      }
+      case M_ADD: *d = fromf<T>(tof(*d) + v); break;   // h + shortcut(x)
+      case M_RES: *d = fromf<T>(v + tof(*d)); break;   // h + x, in place in x
+      default:
+        if (r < nrows) gout[r * N + j] = v;
+    }
+  }
+};
+
+// epi(r, j, a[r, :K] . W[:K, j]) for every row of the tile and j < N.
+// RPT rows per thread: R / RPT row groups, 256 * RPT / R column threads.
+template <typename T, int R, int RPT>
+__device__ __forceinline__ void matmul_rpt(const T* a, int lda, int K,
+                                           const T* __restrict__ W, int N,
+                                           const Epilogue<T>& epi) {
+  constexpr int kGroups = R / RPT;
+  constexpr int kCols = kThreads / kGroups;
+  const int tcol = threadIdx.x % kCols, rg = threadIdx.x / kCols;
+  const int K4 = K & ~3;
+  for (int j = tcol; j < N; j += kCols) {
+    float acc[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+    for (int k = 0; k < K4; k += 4) {
+      const float w0 = tof(__ldg(W + (size_t)(k + 0) * N + j));
+      const float w1 = tof(__ldg(W + (size_t)(k + 1) * N + j));
+      const float w2 = tof(__ldg(W + (size_t)(k + 2) * N + j));
+      const float w3 = tof(__ldg(W + (size_t)(k + 3) * N + j));
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float4 v = load4(a + (rg + i * kGroups) * lda + k);
+        acc[i] = fmaf(v.x, w0, acc[i]);
+        acc[i] = fmaf(v.y, w1, acc[i]);
+        acc[i] = fmaf(v.z, w2, acc[i]);
+        acc[i] = fmaf(v.w, w3, acc[i]);
+      }
+    }
+    for (int k = K4; k < K; ++k) {
+      const float wk = tof(__ldg(W + (size_t)k * N + j));
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+        acc[i] = fmaf(tof(a[(rg + i * kGroups) * lda + k]), wk, acc[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) epi(rg + i * kGroups, j, acc[i]);
+  }
+}
+
+// The smallest RPT whose column threads cover N, up to 16 rows per thread
+// (more accumulators would spill under the 128-register cap of two CTAs per
+// SM); wider outputs loop over column passes.
+template <typename T, int R, int RPT = 1>
+__device__ __forceinline__ void matmul(const T* a, int lda, int K, const T* __restrict__ W,
+                                       int N, const Epilogue<T>& epi) {
+  if constexpr (RPT < R && RPT < 16) {
+    if (N > kThreads * RPT / R) {
+      matmul<T, R, RPT * 2>(a, lda, K, W, N, epi);
+      return;
+    }
+  }
+  matmul_rpt<T, R, RPT>(a, lda, K, W, N, epi);
+}
+
+// dst[r, :width] = swish(LN(src[r, :width]) * g + be), one warp per row;
+// lanes past the width add zero, which masks widths under 32.
+template <typename T, int R>
+__device__ void ln_swish(const T* src, int lds, int width, const T* __restrict__ g,
+                         const T* __restrict__ be, T* dst, int ldd) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < R; r += kThreads / 32) {
+    const T* s = src + r * lds;
+    float sum = 0.f;
+    for (int k = lane; k < width; k += 32) sum += tof(s[k]);
+    const float mean = warp_sum(sum) / width;
+    float sq = 0.f;
+    for (int k = lane; k < width; k += 32) {
+      const float d = tof(s[k]) - mean;
+      sq += d * d;
+    }
+    const float inv = 1.0f / sqrtf(warp_sum(sq) / width + kLnEps);
+    T* d = dst + r * ldd;
+    for (int k = lane; k < width; k += 32) {
+      const float v = rnd<T>((tof(s[k]) - mean) * inv * tof(__ldg(g + k)) + tof(__ldg(be + k)));
+      d[k] = fromf<T>(swish(v));
+    }
+  }
+}
+
+template <typename T, int R>
+__device__ void copy_cols(const T* src, int lds, T* dst, int ldd, int width) {
+  for (int i = threadIdx.x; i < R * width; i += kThreads) {
+    const int r = i / width, c = i - r * width;
+    dst[r * ldd + c] = src[r * lds + c];
+  }
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads, 2) mega_kernel(const MegaArgs<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Layout& l = p.lay;
+  float* tproj = reinterpret_cast<float*>(smem_raw);   // every block's st @ W_t + b_t
+  T* st = reinterpret_cast<T*>(tproj + l.tproj_pad);
+  T* ys = st + l.time_pad;                 // (R, ldy) y tile
+  T* scs = ys + R * l.ldy;                 // (R, lds) sc tile
+  T* xs = scs + R * l.lds;                 // (R, ldx) x, and [x, skip] for up blocks
+  T* as = xs + R * l.ldx;                  // (R, ldx) swish(LN(.))
+  T* hs = as + R * l.ldx;                  // (R, ldh) block state
+  T* skip = hs + R * l.ldh;                // the skip stack; entry at (off, w) is (R, w)
+  const T* __restrict__ W = p.w;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < p.time_dim; i += kThreads) st[i] = p.st[i];
+  __syncthreads();
+  for (int f = tid; f < p.n_tproj; f += kThreads) {
+    const int* L = p.table;
+    for (int li = 0; li < p.n_layers; ++li, L += kTableCols) {
+      const int off = __ldg(L + K_TPROJ);
+      if (__ldg(L + K_KIND) == BLOCK && f >= off && f < off + __ldg(L + K_OUT)) break;
+    }
+    const int N = __ldg(L + K_OUT), j = f - __ldg(L + K_TPROJ);
+    const T* wt = W + __ldg(L + K_WT) + j;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < p.time_dim; ++k) acc = fmaf(tof(st[k]), tof(__ldg(wt + (size_t)k * N)), acc);
+    tproj[f] = rnd<T>(acc + tof(__ldg(W + __ldg(L + K_BT) + j)));
+  }
+
+  const T zero = fromf<T>(0.f);
+  const int ntiles = (p.rows + R - 1) / R;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int row0 = tile * R;
+    const int nrows = min(R, p.rows - row0);
+    __syncthreads();   // the last tile's readers are done with ys and scs
+    for (int i = tid; i < R * l.ldy; i += kThreads) {
+      const int r = i / l.ldy, c = i - r * l.ldy;
+      ys[i] = (r < nrows && c < p.D) ? p.y[(size_t)(row0 + r) * p.D + c] : zero;
+    }
+    for (int i = tid; i < R * l.lds; i += kThreads) {
+      const int r = i / l.lds, c = i - r * l.lds;
+      scs[i] = (r < nrows && c < p.C) ? p.sc[(size_t)(row0 + r) * p.C + c] : zero;
+    }
+    __syncthreads();
+
+    int cur = 0;   // width of x in xs
+    const int* L = p.table;
+    for (int li = 0; li < p.n_layers; ++li, L += kTableCols) {
+      const int kind = __ldg(L + K_KIND), in = __ldg(L + K_IN), out = __ldg(L + K_OUT);
+      const int flags = __ldg(L + K_FLAGS);
+      Epilogue<T> e{};
+      e.mode = M_STORE;
+      e.bias = W + __ldg(L + K_B1);
+      e.N = out;
+      if (kind == FEATURE_PROJ) {
+        e.dst = xs, e.ldd = l.ldx;
+        matmul<T, R>(ys, l.ldy, in, W + __ldg(L + K_W1), out, e);
+        __syncthreads();
+      } else if (kind == RESAMPLE) {
+        e.dst = hs, e.ldd = l.ldh;
+        matmul<T, R>(xs, l.ldx, in, W + __ldg(L + K_W1), out, e);
+        __syncthreads();
+        copy_cols<T, R>(hs, l.ldh, xs, l.ldx, out);
+        __syncthreads();
+      } else if (kind == BLOCK) {
+        if (flags & F_CONCAT) {
+          const int sw = __ldg(L + K_SKIP_W);
+          copy_cols<T, R>(skip + R * __ldg(L + K_SKIP_OFF), sw, xs + cur, l.ldx, sw);
+          __syncthreads();
+        }
+        ln_swish<T, R>(xs, l.ldx, in, W + __ldg(L + K_G1), W + __ldg(L + K_BE1), as, l.ldx);
+        __syncthreads();
+        e.mode = M_LIN1, e.dst = hs, e.ldd = l.ldh, e.tproj = tproj + __ldg(L + K_TPROJ);
+        matmul<T, R>(as, l.ldx, in, W + __ldg(L + K_W1), out, e);
+        __syncthreads();
+        ln_swish<T, R>(hs, l.ldh, out, W + __ldg(L + K_G2), W + __ldg(L + K_BE2), as, l.ldx);
+        __syncthreads();
+        e.mode = M_LIN2, e.bias = W + __ldg(L + K_B2);
+        e.sc = scs, e.lds = l.lds, e.C = p.C;
+        e.wc = W + __ldg(L + K_WC), e.bc = W + __ldg(L + K_BC);
+        matmul<T, R>(as, l.ldx, out, W + __ldg(L + K_W2), out, e);
+        __syncthreads();
+        ln_swish<T, R>(hs, l.ldh, out, W + __ldg(L + K_G3), W + __ldg(L + K_BE3), as, l.ldx);
+        __syncthreads();
+        e.bias = W + __ldg(L + K_B3);
+        if (flags & F_SHORTCUT) {
+          e.mode = M_STORE;
+          matmul<T, R>(as, l.ldx, out, W + __ldg(L + K_W3), out, e);
+          __syncthreads();
+          e.mode = M_ADD, e.bias = W + __ldg(L + K_BS);
+          matmul<T, R>(xs, l.ldx, in, W + __ldg(L + K_WS), out, e);
+          __syncthreads();
+          copy_cols<T, R>(hs, l.ldh, xs, l.ldx, out);
+        } else {
+          // in == out: each thread adds x[r, j] of the (r, j) it owns.
+          e.mode = M_RES, e.dst = xs, e.ldd = l.ldx;
+          matmul<T, R>(as, l.ldx, out, W + __ldg(L + K_W3), out, e);
+        }
+        __syncthreads();
+      } else {   // HEAD
+        ln_swish<T, R>(xs, l.ldx, in, W + __ldg(L + K_G1), W + __ldg(L + K_BE1), as, l.ldx);
+        __syncthreads();
+        e.mode = M_OUT, e.dst = hs, e.ldd = 0;
+        e.gout = p.out + (size_t)row0 * out, e.nrows = nrows;
+        matmul<T, R>(as, l.ldx, in, W + __ldg(L + K_W1), out, e);
+      }
+      if (flags & F_PUSH) {
+        copy_cols<T, R>(xs, l.ldx, skip + R * __ldg(L + K_SKIP_OFF), out, out);
+        __syncthreads();
+      }
+      cur = out;
+    }
+  }
+}
+
+int g_last_launch[3] = {0, 0, 0};   // tile rows, grid, shared-memory bytes
+
+template <typename T, int R>
+cudaError_t launch(const MegaArgs<T>& p, size_t smem, cudaStream_t stream) {
+  // The opt-in above 48 KB is per kernel; raise it once to the largest size seen.
+  static size_t smem_opt_in = 48 * 1024;
+  cudaError_t e;
+  if (smem > smem_opt_in) {
+    e = cudaFuncSetAttribute(mega_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_opt_in = smem;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_kernel<T, R>, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int tiles = (p.rows + R - 1) / R;
+  const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
+  g_last_launch[0] = R, g_last_launch[1] = grid, g_last_launch[2] = (int)smem;
+  mega_kernel<T, R><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+template <typename T>
+int run(const void* y, const void* sc, const void* st, const void* w, const int* table,
+        float* out, int rows, int n_layers, int D, int C, int time_dim, int skip_w,
+        int max_in, int max_out, int n_tproj, int tile_rows, cudaStream_t stream) {
+  const Layout lay{round_up(D, 4), round_up(C, 4),
+                   round_up(max_in > max_out ? max_in : max_out, 4), round_up(max_out, 4),
+                   round_up(time_dim, 8), round_up(n_tproj, 4)};
+  const MegaArgs<T> p{static_cast<const T*>(y), static_cast<const T*>(sc),
+                      static_cast<const T*>(st), static_cast<const T*>(w), table, out,
+                      rows, n_layers, D, C, time_dim, skip_w, n_tproj, lay};
+  const size_t s32 = smem_bytes<T>(32, skip_w, lay), s16 = smem_bytes<T>(16, skip_w, lay);
+  // 32-row tiles when two CTAs still fit on an SM, else 16-row tiles.
+  if (tile_rows == 0) tile_rows = s32 <= kSmemTwoPerSm ? 32 : 16;
+  if (tile_rows == 32 && s32 <= kSmemMax) return launch<T, 32>(p, s32, stream);
+  if (tile_rows == 16 && s16 <= kSmemMax) return launch<T, 16>(p, s16, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Launches the whole forward on `stream`; returns the cudaError_t of the
+// launch. dtype 0 is float32, 1 bfloat16 (y, sc, st and the weights are of
+// that type; out is float32). The caller guarantees contiguous arrays, a
+// table from ops/mega.py::pack_params, every width a multiple of 4, and
+// weight offsets that keep each array 16-byte aligned. tile_rows is 16, 32
+// or 0 (chosen from the shared-memory footprint).
+extern "C" int diffsg_unet_mega(const void* y, const void* sc, const void* st, const void* w,
+                                const int* table, float* out, int dtype, int rows,
+                                int n_layers, int D, int C, int time_dim, int skip_w,
+                                int max_in, int max_out, int n_tproj, int tile_rows,
+                                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run<float>(y, sc, st, w, table, out, rows, n_layers, D, C, time_dim, skip_w,
+                      max_in, max_out, n_tproj, tile_rows, s);
+  if (dtype == 1)
+    return run<__nv_bfloat16>(y, sc, st, w, table, out, rows, n_layers, D, C, time_dim,
+                              skip_w, max_in, max_out, n_tproj, tile_rows, s);
+  return cudaErrorInvalidValue;
+}
+
+// The tile rows, grid size and shared-memory bytes of the last launch.
+extern "C" void diffsg_unet_mega_last_launch(int* info) {
+  for (int i = 0; i < 3; ++i) info[i] = g_last_launch[i];
+}

@@ -14,7 +14,9 @@ numerics are kept:
   whole batch tensor with the **unbiased** (ddof=1) variance, or over the
   valid rows when ``valid_mask`` is given.
 
-Not ported yet: ``record_trace``, ``compute_dtype`` and ``guidance_fn``.
+``compute_dtype`` (e.g. ``torch.bfloat16``) runs the denoiser forward in that
+type and keeps the CFG combine and the reverse step in float32. Not ported
+yet: ``record_trace`` and ``guidance_fn``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,38 @@ def masked_mean_var(y: torch.Tensor, valid_mask: torch.Tensor) -> Tuple[torch.Te
     mean = (y * valid_mask).sum() / cnt
     var = (valid_mask * (y - mean) ** 2).sum() / (cnt - 1.0)
     return mean, var
+
+
+def cfg_net(apply_fn: ApplyFn, cond: torch.Tensor, omega: float, skip_uncond: bool,
+            compute_dtype: Optional[torch.dtype] = None
+            ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``net_cfg(y_t, t_norm)``: the CFG-combined denoiser output.
+
+    The two CFG passes are folded into one forward of 2B rows (rows [0:B]
+    unconditional, [B:2B] conditional) and combined as
+    ``(1 + omega) eps_cond - omega eps_uncond``; with ``skip_uncond`` only
+    the conditional half runs. With ``compute_dtype`` the forward's inputs
+    are cast to it and its output back to ``cond``'s type.
+    """
+    B, dtype, dev = cond.shape[0], cond.dtype, cond.device
+
+    def forward(y, t_norm, c, m):
+        if compute_dtype is None:
+            return apply_fn(y, t_norm, c, m)
+        cd = compute_dtype
+        return apply_fn(y.to(cd), t_norm.to(cd), c.to(cd), m.to(cd)).to(dtype)
+
+    if skip_uncond:
+        mask1 = torch.ones((B, 1), dtype=dtype, device=dev)
+        return lambda y_t, t_norm: forward(y_t, t_norm, cond, mask1)
+    cond2 = torch.cat([cond, cond], dim=0)
+    mask2 = torch.cat([torch.zeros((B, 1), dtype=dtype, device=dev),
+                       torch.ones((B, 1), dtype=dtype, device=dev)], dim=0)
+
+    def net_cfg(y_t, t_norm):
+        eps2 = forward(torch.cat([y_t, y_t], dim=0), t_norm, cond2, mask2)
+        return (1.0 + omega) * eps2[B:] - omega * eps2[:B]
+    return net_cfg
 
 
 def _reverse_step(sched: Schedule, y_t: torch.Tensor, i: int, eps_cfg: torch.Tensor,
@@ -71,6 +105,7 @@ def cfg_sample(
     valid_mask: Optional[torch.Tensor] = None,
     parameterization: str = "eps",
     skip_uncond: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Batched CFG reverse sampler; returns ``y_0`` (B, data_dim).
 
@@ -89,6 +124,11 @@ def cfg_sample(
         re-standardization statistics to the valid rows.
       parameterization: "eps", "x0" or "v" — what the denoiser predicts.
       skip_uncond: run only the conditional half (exact at omega == 0).
+      compute_dtype: optional type of the denoiser forward: y, t, cond and
+        mask are cast to it and the output back to ``cond``'s type, so the
+        CFG combine and the reverse step stay float32. Pair it with an
+        ``apply_fn`` built for that type (``unet_apply_fn(model, "mega",
+        compute_dtype=...)``).
     """
     if parameterization not in ("eps", "x0", "v"):
         raise ValueError(f"unknown parameterization {parameterization!r}")
@@ -103,19 +143,7 @@ def cfg_sample(
         if step_noise is None:
             step_noise = torch.randn((T, B, data_dim), generator=generator, dtype=dtype, device=dev)
 
-    if skip_uncond:
-        mask1 = torch.ones((B, 1), dtype=dtype, device=dev)
-
-        def net_cfg(y_t, t_norm):
-            return apply_fn(y_t, t_norm, cond, mask1)
-    else:
-        cond2 = torch.cat([cond, cond], dim=0)
-        mask2 = torch.cat([torch.zeros((B, 1), dtype=dtype, device=dev),
-                           torch.ones((B, 1), dtype=dtype, device=dev)], dim=0)
-
-        def net_cfg(y_t, t_norm):
-            eps2 = apply_fn(torch.cat([y_t, y_t], dim=0), t_norm, cond2, mask2)
-            return (1.0 + omega) * eps2[B:] - omega * eps2[:B]
+    net_cfg = cfg_net(apply_fn, cond, omega, skip_uncond, compute_dtype)
 
     y = init_noise
     for s, i in enumerate(range(T - 1, -1, -1)):

@@ -232,3 +232,12 @@ def unet_msr(M: int = 3, proj_dim: int = 128, dims=(64, 32, 16, 8)) -> UNet1D:
     """MSR config; M=3 or 80."""
     return UNet1D(input_dim=M, proj_dim=proj_dim, cond_dim=M, dims=tuple(dims),
                   is_attn=(False,) * len(dims), middle_attn=False, n_blocks=2)
+
+
+def unet_nu(K: int = 3, cond_extra: int = 0, proj_dim: int = 32,
+            dims=(32, 16, 8)) -> UNet1D:
+    """NU config: input ``2 + K`` (UAV x, y and K powers), condition ``2K``
+    user coordinates (+ ``cond_extra``)."""
+    return UNet1D(input_dim=2 + K, proj_dim=proj_dim, cond_dim=2 * K + cond_extra,
+                  dims=tuple(dims), is_attn=(False,) * len(dims), middle_attn=False,
+                  n_blocks=2)

@@ -9,16 +9,18 @@ projections ``t_proj = swish(t_emb) @ W_t + b_t`` and
 ``c_proj = swish(cond * mask) @ W_c + b_c``.
 
 Use ``unet_apply_fn(model, backend="fused")`` for the sampler's
-``apply_fn(y, t, cond, cond_mask)``.
+``apply_fn(y, t, cond, cond_mask)``; ``backend="mega"`` runs the whole
+forward as one launch of the whole-network kernel (``ops/mega.py``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from .unet1d import UNet1D, swish
+from ..ops.mega import pack_params, unet_forward_mega
 from ..ops.resblock import fused_residual_block, resblock_params_tuple
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -52,14 +54,23 @@ def unet_forward_fused(model: UNet1D, y: torch.Tensor, t: torch.Tensor,
     return model.final(swish(model.norm(x)))
 
 
-def unet_apply_fn(model: UNet1D, backend: str = "fused") -> ApplyFn:
+def unet_apply_fn(model: UNet1D, backend: str = "fused",
+                  compute_dtype: Optional[torch.dtype] = None) -> ApplyFn:
     """``apply_fn(y, t, cond, cond_mask)`` for the sampler.
 
-    backend: "plain" (the module's own forward) or "fused" (every residual
-    block through ``ops.resblock.fused_residual_block``).
+    backend: "plain" (the module's own forward), "fused" (every residual
+    block through ``ops.resblock.fused_residual_block``) or "mega" (the
+    whole forward through ``ops.mega.unet_forward_mega``; its weights are
+    packed once, here, in ``compute_dtype``). ``compute_dtype`` (float32
+    when None, or ``torch.bfloat16``) is taken by "mega" only.
     """
+    if backend == "mega":
+        packed = pack_params(model, compute_dtype)
+        return lambda y, t, c, m: unet_forward_mega(model, y, t, c, m, compute_dtype, packed)
+    if compute_dtype is not None:
+        raise ValueError(f"compute_dtype is taken by the 'mega' backend only, not {backend!r}")
     if backend == "plain":
         return model
     if backend == "fused":
         return lambda y, t, c, m: unet_forward_fused(model, y, t, c, m)
-    raise ValueError(f"unknown backend {backend!r}; use 'plain' or 'fused'")
+    raise ValueError(f"unknown backend {backend!r}; use 'plain', 'fused' or 'mega'")

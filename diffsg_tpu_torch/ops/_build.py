@@ -1,9 +1,11 @@
-"""Build the port's CUDA kernels with one ``nvcc`` call and load them.
+"""Build the port's CUDA kernels with ``nvcc`` and load them.
 
-Every ``csrc/*.cu`` goes into one shared library with a plain C interface,
-loaded with ``ctypes``; no PyTorch headers, so the build takes seconds. The
-library lands in ``build/diffsg_tpu_torch/`` under the repository root,
-named by a hash of the sources and flags, and is built at first use.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``; no PyTorch headers, so the build takes
+seconds. The library lands in ``build/diffsg_tpu_torch/`` under the
+repository root, named by a hash of the sources and flags, and is built at
+first use.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Optional
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _BUILD_DIR = _PKG.parent / "build" / "diffsg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: Seconds the last build in this process took (None: nothing was built).
 BUILD_SECONDS: Optional[float] = None
@@ -50,14 +52,26 @@ def library() -> ctypes.CDLL:
     so = _BUILD_DIR / f"libdiffsg_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{os.getpid()}.tmp"
+        objs = [so.with_name(f"{src.stem}_{digest.hexdigest()[:16]}.{tag}.o") for src in sources]
+        tmp = so.with_name(f"{so.name}.{tag}")
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [proc.communicate()[1] for proc in procs]
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        for obj in objs:
+            obj.unlink()
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
         BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stderr
+        BUILD_LOG = "".join(logs)
         os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
     _LIB = ctypes.CDLL(str(so))
     return _LIB

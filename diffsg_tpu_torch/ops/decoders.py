@@ -1,14 +1,15 @@
 """Solution decoders: raw sampler output -> feasible solutions.
 
-Counterpart of ``diffsg_tpu/ops/decoders.py`` (MSR). The MSR decoder
-normalizes by the min and max of the **whole batch tensor**, not per row, as
-the published method does; ``valid_mask`` (B, 1) restricts those reductions
-to real rows.
+Counterpart of ``diffsg_tpu/ops/decoders.py`` (MSR and NU). The MSR decoder
+and ``nu_decode`` normalize by the min and max of the **whole batch
+tensor**, not per row, as the published method does; ``valid_mask`` (B, 1)
+restricts those reductions to real rows. ``nu_direct_decode`` is strictly
+per row.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -30,3 +31,47 @@ def msr_decode(Y: torch.Tensor, valid_mask: Optional[torch.Tensor] = None) -> to
     else:
         mn, mx = masked_min_max(Y, valid_mask)
     return torch.softmax((Y - mn) / (mx - mn), dim=1)
+
+
+def msr_simplex_project(Y: torch.Tensor, W: Union[float, torch.Tensor]) -> torch.Tensor:
+    """Euclidean projection of each row onto {p >= 0, sum p = W}: sort
+    descending, tau = (cumsum of the k largest - W) / k for the largest
+    valid k. ``W`` is a scalar or a (B, 1) per-row budget."""
+    D = Y.shape[1]
+    s = torch.sort(Y, dim=1, descending=True).values
+    csum = torch.cumsum(s, dim=1)
+    k = torch.arange(1, D + 1, dtype=Y.dtype, device=Y.device)[None, :]
+    tau_k = (csum - W) / k
+    rho = (s > tau_k).sum(dim=1) - 1
+    tau = torch.gather(tau_k, 1, rho[:, None])
+    return torch.clamp(Y - tau, min=0.0)
+
+
+def nu_direct_decode(Y: torch.Tensor, width: float, height: float, P_sum: float,
+                     y_scale: float = 1.0,
+                     y_shift: Union[float, Sequence[float], torch.Tensor] = 0.0) -> torch.Tensor:
+    """Per-row NU decode for scale-normalized training: unscale (targets
+    were ``y_scale * (labels - y_shift)``, ``y_shift`` scalar or (D,)), clip
+    the UAV position into the area and project the power split onto the
+    simplex of sum ``P_sum``."""
+    shift = torch.as_tensor(y_shift, dtype=Y.dtype, device=Y.device)
+    yd = Y / y_scale + shift
+    area = torch.tensor([width, height], dtype=Y.dtype, device=Y.device)[None, :]
+    xy = torch.clamp(yd[:, :2], 0.0, 1.0) * area
+    P = msr_simplex_project(yd[:, 2:], 1.0) * P_sum
+    return torch.cat([xy, P], dim=1)
+
+
+def nu_decode(Y: torch.Tensor, width: float, height: float, P_sum: float,
+              valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """UAV coordinates: min-max over the whole (B, 2) coordinate slice,
+    scaled to the area; powers: per-row softmax times ``P_sum``."""
+    xy = Y[:, :2]
+    if valid_mask is None:
+        mn, mx = xy.min(), xy.max()
+    else:
+        mn, mx = masked_min_max(xy, valid_mask)
+    area = torch.tensor([width, height], dtype=Y.dtype, device=Y.device)[None, :]
+    xy = (xy - mn) / (mx - mn) * area
+    P = torch.softmax(Y[:, 2:], dim=1) * P_sum
+    return torch.cat([xy, P], dim=1)

@@ -1,0 +1,363 @@
+"""Whole-UNet1D forward in one kernel launch: the hand-written CUDA kernel,
+its plain PyTorch version and the weight packer.
+
+Counterpart of ``diffsg_tpu/ops/pallas_mega.py::unet_forward_mega``. The
+whole denoiser forward runs for a tile of rows in one launch of
+``csrc/mega.cu``: ``feature_proj``; the down blocks and resamples, pushing
+the skip stack; ``middle.res1`` and ``res2``; the up blocks, each
+concatenating ``[x, skip]`` before ``norm1``; the final LN -> swish ->
+Linear. As in the JAX package, the time MLP runs outside at batch 1 and its
+swish ``st`` goes in (each block's time projection ``st @ W_t + b_t`` is
+computed inside), and ``sc = swish(cond * mask)`` is computed outside.
+
+``compute_dtype`` (``None`` for float32, or ``torch.bfloat16``) sets the type
+of the weights and activations, with the JAX kernel's rounding points: LN
+statistics, swish and every product's accumulation and bias add in float32,
+each result rounded to the compute type; residual adds and the concat in
+the compute type. The output is float32 either way.
+
+``unet_forward_mega`` takes the plain version for tensors on the CPU and
+launches the kernel for tensors on a CUDA device; there is no fallback
+between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from . import _build
+
+if TYPE_CHECKING:  # the models package imports this module
+    from ..models.unet1d import UNet1D
+
+_LN_EPS = 1e-5
+
+#: Number of kernel launches in this process; only the CUDA path counts.
+LAUNCHES = 0
+
+# Layer kinds of the table.
+FEATURE_PROJ, BLOCK, RESAMPLE, HEAD = 0, 1, 2, 3
+# Layer flags.
+F_SHORTCUT, F_PUSH, F_CONCAT = 1, 2, 4
+# Columns of one table row (int32). The weight offsets index the packed
+# buffer; dense layers and the head use W1/B1 (and the head G1/BE1).
+(K_KIND, K_IN, K_OUT, K_FLAGS, K_SKIP_OFF, K_SKIP_W, K_TPROJ,
+ K_G1, K_BE1, K_W1, K_B1, K_WT, K_BT, K_G2, K_BE2, K_W2, K_B2, K_WC, K_BC,
+ K_G3, K_BE3, K_W3, K_B3, K_WS, K_BS) = range(25)
+TABLE_COLS = 32
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class MegaParams(NamedTuple):
+    """The packed network: every weight the kernel reads in one contiguous
+    buffer of the compute type (each Dense in its (in, out) layout), and
+    the int32 layer table (rows of ``TABLE_COLS``) the kernel walks."""
+
+    weights: torch.Tensor      # (n,) compute type
+    table: torch.Tensor        # (layers, TABLE_COLS) int32
+    skip_width: int            # values of the skip stack per row
+    max_in: int                # widest block input (the widest concat)
+    max_out: int               # widest layer output
+    n_tproj: int               # values of all blocks' time projections
+    time_dim: int              # width of st (4 * proj_dim)
+    input_dim: int             # D
+    cond_dim: int              # C
+
+
+def _check_model(model: "UNet1D") -> None:
+    widths = (model.proj_dim, *model.dims)
+    if any(w % 4 for w in widths):
+        raise ValueError(f"the mega kernel needs widths that are multiples of 4, got {widths}")
+
+
+def pack_params(model: "UNet1D", dtype: Optional[torch.dtype] = None,
+                device: Optional[torch.device] = None) -> MegaParams:
+    """Pack ``model``'s weights (all but the time MLP, which runs outside)
+    into one buffer of ``dtype`` (float32 when None) on ``device`` (the
+    model's when None), and build the layer table from ``unet_topology``."""
+    _check_model(model)
+    dtype = torch.float32 if dtype is None else dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"the mega kernel computes in float32 or bfloat16, not {dtype}")
+    if device is None:
+        device = model.feature_proj.kernel.device
+    chunks: List[torch.Tensor] = []
+    size = 0
+
+    def put(t: torch.Tensor) -> int:
+        nonlocal size
+        flat = t.detach().reshape(-1).float()
+        off, pad = size, -flat.numel() % 8   # keep every array 16-byte aligned
+        chunks.append(flat)
+        if pad:
+            chunks.append(flat.new_zeros(pad))
+        size += flat.numel() + pad
+        return off
+
+    rows: List[List[int]] = []
+    skip: List[Tuple[int, int]] = []      # (offset, width) of each pushed entry
+    skip_top = 0
+    n_tproj = 0
+
+    def row(kind: int, d_in: int, d_out: int) -> List[int]:
+        r = [0] * TABLE_COLS
+        r[K_KIND], r[K_IN], r[K_OUT] = kind, d_in, d_out
+        rows.append(r)
+        return r
+
+    def push(r: List[int]) -> None:
+        nonlocal skip_top
+        r[K_FLAGS] |= F_PUSH
+        r[K_SKIP_OFF], r[K_SKIP_W] = skip_top, r[K_OUT]
+        skip.append((skip_top, r[K_OUT]))
+        skip_top += r[K_OUT]
+
+    def dense(r: List[int], lin) -> None:
+        r[K_W1], r[K_B1] = put(lin.kernel), put(lin.bias)
+
+    def block(res, concat: bool) -> List[int]:
+        nonlocal n_tproj
+        d_in, d_out = res.lin1.kernel.shape
+        r = row(BLOCK, d_in, d_out)
+        r[K_TPROJ] = n_tproj
+        n_tproj += d_out
+        r[K_G1], r[K_BE1] = put(res.norm1.scale), put(res.norm1.bias)
+        r[K_W1], r[K_B1] = put(res.lin1.kernel), put(res.lin1.bias)
+        r[K_WT], r[K_BT] = put(res.time_emb.kernel), put(res.time_emb.bias)
+        r[K_G2], r[K_BE2] = put(res.norm2.scale), put(res.norm2.bias)
+        r[K_W2], r[K_B2] = put(res.lin2.kernel), put(res.lin2.bias)
+        r[K_WC], r[K_BC] = put(res.cond_emb.kernel), put(res.cond_emb.bias)
+        r[K_G3], r[K_BE3] = put(res.norm3.scale), put(res.norm3.bias)
+        r[K_W3], r[K_B3] = put(res.lin3.kernel), put(res.lin3.bias)
+        if res.shortcut is not None:
+            r[K_FLAGS] |= F_SHORTCUT
+            r[K_WS], r[K_BS] = put(res.shortcut.kernel), put(res.shortcut.bias)
+        if concat:
+            r[K_FLAGS] |= F_CONCAT
+            r[K_SKIP_OFF], r[K_SKIP_W] = skip.pop()
+        return r
+
+    with torch.no_grad():
+        r = row(FEATURE_PROJ, model.input_dim, model.proj_dim)
+        dense(r, model.feature_proj)
+        push(r)
+        for kind, m in zip(model.down_kinds, model.down):
+            if kind == "block":
+                r = block(m.res, concat=False)
+            else:
+                r = row(RESAMPLE, *m.lin.kernel.shape)
+                dense(r, m.lin)
+            push(r)
+        block(model.middle.res1, concat=False)
+        block(model.middle.res2, concat=False)
+        for kind, m in zip(model.up_kinds, model.up):
+            if kind == "block":
+                block(m.res, concat=True)
+            else:
+                r = row(RESAMPLE, *m.lin.kernel.shape)
+                dense(r, m.lin)
+        r = row(HEAD, model.proj_dim, model.input_dim)
+        r[K_G1], r[K_BE1] = put(model.norm.scale), put(model.norm.bias)
+        dense(r, model.final)
+        if skip:
+            raise AssertionError(f"skip stack not empty after the up path: {skip}")
+        weights = torch.cat(chunks).to(device=device, dtype=dtype).contiguous()
+
+    table = torch.tensor(rows, dtype=torch.int32, device=device)
+    blocks = [r for r in rows if r[K_KIND] == BLOCK]
+    return MegaParams(
+        weights=weights, table=table, skip_width=skip_top,
+        max_in=max(r[K_IN] for r in blocks),
+        max_out=max(r[K_OUT] for r in rows if r[K_KIND] != HEAD),
+        n_tproj=n_tproj, time_dim=model.proj_dim * 4,
+        input_dim=model.input_dim, cond_dim=model.cond_dim)
+
+
+# -- the function, in plain PyTorch ---------------------------------------------
+
+def _swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def _time_features(model: "UNet1D", t: torch.Tensor) -> torch.Tensor:
+    """The time MLP at the batch of ``t``. The sinusoid is formed in
+    ``t``'s type (bfloat16 when the sampler casts t), the MLP in float32
+    with the module's weights, as the JAX package's ``_time_features``."""
+    te = model.time_emb
+    half = te.in_dim // 8
+    freq = torch.exp(torch.arange(half, dtype=t.dtype, device=t.device)
+                     * -(math.log(10_000) / (half - 1)))
+    emb = t[:, None] * freq[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1).float()
+    return te.lin2(_swish(te.lin1(emb)))
+
+
+def mega_inputs(model: "UNet1D", y: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
+                cond_mask: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, sc, st) in the compute type, as the kernel reads them:
+    ``sc = swish(cond * mask)`` (B, C) and ``st = swish(time MLP(t))``
+    (1, 4 * proj). ``t`` must hold exactly one entry: the sampler's
+    batch-1 time."""
+    dtype = torch.float32 if compute_dtype is None else compute_dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"the mega kernel computes in float32 or bfloat16, not {dtype}")
+    if t.numel() != 1:
+        raise ValueError(f"the mega forward takes a batch-1 time t (one entry), got shape "
+                         f"{tuple(t.shape)}")
+    B, D = y.shape
+    if D != model.input_dim or cond.shape != (B, model.cond_dim) or cond_mask.shape != (B, 1):
+        raise ValueError(f"shapes y {tuple(y.shape)}, cond {tuple(cond.shape)}, mask "
+                         f"{tuple(cond_mask.shape)} do not fit a net of input "
+                         f"{model.input_dim} and condition {model.cond_dim}")
+    st = _swish(_time_features(model, t.reshape(1))).to(dtype)
+    sc = _swish(cond * cond_mask).to(dtype)
+    return y.to(dtype), sc, st
+
+
+def unet_forward_mega_reference(model: "UNet1D", y: torch.Tensor, t: torch.Tensor,
+                                cond: torch.Tensor, cond_mask: torch.Tensor,
+                                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The whole forward in plain PyTorch, rounded where the kernel rounds.
+    Returns float32 (B, D)."""
+    _check_model(model)
+    y, sc, st = mega_inputs(model, y, t, cond, cond_mask, compute_dtype)
+    dt = y.dtype
+
+    def rnd(x):                       # round to the compute type, go on in f32
+        return x.to(dt).float()
+
+    def w(p):
+        return rnd(p.detach().float())
+
+    def ln(norm, x):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+        return rnd((x - mean) * torch.rsqrt(var + _LN_EPS) * w(norm.scale) + w(norm.bias))
+
+    def dense(lin, x):
+        return rnd(torch.matmul(x, w(lin.kernel)) + w(lin.bias))
+
+    def act(x):
+        return rnd(_swish(x))
+
+    stf, scf = st.float(), sc.float()
+
+    def resblock(res, x):
+        h = rnd(dense(res.lin1, act(ln(res.norm1, x))) + dense(res.time_emb, stf))
+        h = rnd(dense(res.lin2, act(ln(res.norm2, h))) + dense(res.cond_emb, scf))
+        h = dense(res.lin3, act(ln(res.norm3, h)))
+        return rnd(h + (dense(res.shortcut, x) if res.shortcut is not None else x))
+
+    x = dense(model.feature_proj, y.float())
+    skips = [x]
+    for kind, m in zip(model.down_kinds, model.down):
+        x = resblock(m.res, x) if kind == "block" else dense(m.lin, x)
+        skips.append(x)
+    x = resblock(model.middle.res1, x)
+    x = resblock(model.middle.res2, x)
+    for kind, m in zip(model.up_kinds, model.up):
+        x = dense(m.lin, x) if kind == "resample" else resblock(m.res, torch.cat([x, skips.pop()], 1))
+    return dense(model.final, act(ln(model.norm, x)))
+
+
+# -- the kernel -------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_ARGTYPES = [_P] * 6 + [ctypes.c_int] * 11 + [_P]
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.library()
+    fn = lib.diffsg_unet_mega
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.diffsg_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.diffsg_cuda_error_string.restype = ctypes.c_char_p
+        lib.diffsg_unet_mega_last_launch.argtypes = [ctypes.c_void_p]
+        lib.diffsg_unet_mega_last_launch.restype = None
+    return lib
+
+
+def unet_forward_mega(model: "UNet1D", y: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
+                      cond_mask: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                      packed: Optional[MegaParams] = None) -> torch.Tensor:
+    """The whole UNet1D forward: one launch of the CUDA kernel on a CUDA
+    device, the plain version on the CPU. Returns float32 (B, D).
+
+    ``packed`` is ``pack_params(model, compute_dtype)``, packed once by the
+    caller (``unet_apply_fn(model, "mega")`` does); without it the weights
+    are packed on every call. Raises on anything the kernel does not take.
+    """
+    if y.device.type == "cpu":
+        return unet_forward_mega_reference(model, y, t, cond, cond_mask, compute_dtype)
+    if y.device.type != "cuda":
+        raise ValueError(f"unet_forward_mega runs on cuda or cpu, not {y.device}")
+    _check_model(model)
+    dev = y.device
+    for name, a in (("y", y), ("t", t), ("cond", cond), ("cond_mask", cond_mask)):
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, y on {dev}")
+    ys, sc, st = mega_inputs(model, y, t, cond, cond_mask, compute_dtype)
+    if packed is None:
+        packed = pack_params(model, ys.dtype, dev)
+    if (packed.input_dim, packed.cond_dim) != (model.input_dim, model.cond_dim):
+        raise ValueError("packed weights are of another net")
+    return launch_mega(packed, ys, sc, st)
+
+
+def launch_mega(packed: MegaParams, y: torch.Tensor, sc: torch.Tensor, st: torch.Tensor,
+                tile_rows: int = 0) -> torch.Tensor:
+    """One launch of the kernel on the inputs ``mega_inputs`` makes (all on
+    one CUDA device, of the packed weights' type); returns float32 (B, D).
+    ``tile_rows`` is the rows per CTA, 16 or 32; 0 lets the launcher choose
+    32 where two CTAs still fit on an SM, else 16."""
+    dev, dtype = y.device, packed.weights.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"launch_mega runs on a CUDA device, not {dev}")
+    if tile_rows not in (0, 16, 32):
+        raise ValueError(f"tile_rows must be 0, 16 or 32, got {tile_rows}")
+    rows = y.shape[0]
+    for name, a, shape in (("y", y, (rows, packed.input_dim)), ("sc", sc, (rows, packed.cond_dim)),
+                           ("st", st, (1, packed.time_dim)), ("weights", packed.weights, None),
+                           ("table", packed.table, None)):
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, y on {dev}")
+        if name != "table" and a.dtype != dtype:
+            raise TypeError(f"{name} is {a.dtype}, weights packed as {dtype}")
+        if shape is not None and tuple(a.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {shape}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty((rows, packed.input_dim), device=dev, dtype=torch.float32)
+    if rows == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.diffsg_unet_mega(
+            y.data_ptr(), sc.data_ptr(), st.data_ptr(), packed.weights.data_ptr(),
+            packed.table.data_ptr(), out.data_ptr(),
+            _DTYPES[dtype], rows, packed.table.shape[0], packed.input_dim,
+            packed.cond_dim, packed.time_dim, packed.skip_width, packed.max_in,
+            packed.max_out, packed.n_tproj, tile_rows,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.diffsg_cuda_error_string(err).decode()
+        raise RuntimeError(f"mega kernel launch failed: {msg} ({err})")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
+
+
+def last_launch() -> Dict[str, int]:
+    """Tile rows, grid size and shared-memory bytes of the last launch in
+    this process (all 0 before the first)."""
+    info = (ctypes.c_int * 3)()
+    _library().diffsg_unet_mega_last_launch(info)
+    return dict(zip(("tile_rows", "grid", "smem_bytes"), info))

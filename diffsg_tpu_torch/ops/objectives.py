@@ -1,10 +1,45 @@
-"""Objective evaluators. Counterpart of ``diffsg_tpu/ops/objectives.py`` (MSR)."""
+"""Objective evaluators. Counterpart of ``diffsg_tpu/ops/objectives.py``
+(MSR and NU)."""
 
 from __future__ import annotations
 
 import torch
 
+# NU channel model (the JAX package's ``ops/objectives.py`` constants).
+NU_SIGMA_SQ = 110.0
+NU_RHO_0 = 60.0
+NU_UAV_H = 150.0
+
 
 def msr_sum_rate(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Per-sample rate ``sum_m log2(1 + p_m * g_m)``; p, g (B, M) -> (B,)."""
     return torch.log2(1.0 + p * g).sum(dim=1)
+
+
+def nu_channel_gains(uav_xy: torch.Tensor, user_xy: torch.Tensor) -> torch.Tensor:
+    """h_j = sqrt(rho0 / (H^2 + ||q_user_j - q_uav||^2)); uav_xy (B, 2),
+    user_xy (B, 2K) interleaved [x1, y1, x2, y2, ...] -> (B, K)."""
+    dx = user_xy[:, 0::2] - uav_xy[:, 0:1]
+    dy = user_xy[:, 1::2] - uav_xy[:, 1:2]
+    return torch.sqrt(NU_RHO_0 / (NU_UAV_H ** 2 + dx ** 2 + dy ** 2))
+
+
+def nu_rate(Y: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """NOMA sum rate with SIC decoding by descending channel gain.
+
+    Y (B, 2+K) decoded [uav_x, uav_y, P_1..P_K]; X (B, 2K) user coordinates
+    (both unnormalized) -> (B,). The strongest user has SINR
+    ``P h^2 / sigma^2``; the user at SIC position k > 0 has
+    ``P / (sum of the powers before it + sigma^2 / h^2)``.
+    """
+    P = Y[:, 2:]
+    h = nu_channel_gains(Y[:, :2], X)
+    order = torch.argsort(-h, dim=1, stable=True)
+    h_sorted = torch.gather(h, 1, order)
+    P_sorted = torch.gather(P, 1, order)
+    interference = torch.cumsum(P_sorted, dim=1) - P_sorted   # exclusive prefix sum
+    sinr_strong = P_sorted * h_sorted ** 2 / NU_SIGMA_SQ
+    sinr_rest = P_sorted / (interference + NU_SIGMA_SQ / h_sorted ** 2)
+    k_pos = torch.arange(P.shape[1], device=P.device)[None, :]
+    sinr = torch.where(k_pos == 0, sinr_strong, sinr_rest)
+    return torch.log2(1.0 + sinr).sum(dim=1)

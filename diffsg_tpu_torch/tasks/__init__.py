@@ -1,3 +1,5 @@
-from .msr import MSR, Task
+from .base import Task
+from .msr import MSR
+from .nu import NU, NU_DIRECT
 
-TASKS = {"msr": MSR}
+TASKS = {"msr": MSR, "nu": NU, "nu_direct": NU_DIRECT}

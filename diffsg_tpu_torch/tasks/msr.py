@@ -1,38 +1,17 @@
 """MSR task: Maximum Sum Rate power allocation over M channels.
 
-Counterpart of ``diffsg_tpu/tasks/msr.py`` (the ``msr`` task) with the part
-of ``tasks/base.py::Task`` that serving reads.
+Counterpart of ``diffsg_tpu/tasks/msr.py`` (the ``msr`` task). ``Task``
+lives in ``tasks/base.py`` and is re-exported here.
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Callable, Dict
-
-import numpy as np
-import torch
-
-from ..models.unet1d import UNet1D, unet_msr
+from ..models.unet1d import unet_msr
 from ..ops.decoders import msr_decode
 from ..ops.objectives import msr_sum_rate
+from .base import Task
 
-
-@dataclasses.dataclass(frozen=True)
-class Task:
-    """One network-optimization problem as the serving path sees it.
-
-    ``decode(Y_raw, config, valid_mask=None)``: raw sampler output ->
-    feasible solutions. ``objective(Y_dec, X_unnorm, config)``: per-sample
-    objective. ``unnormalize_x``: loader-scaled conditions -> physical units.
-    """
-
-    name: str
-    build_model: Callable[[Dict], UNet1D]
-    decode: Callable[..., torch.Tensor]
-    objective: Callable[[torch.Tensor, torch.Tensor, Dict], torch.Tensor]
-    unnormalize_x: Callable[[np.ndarray, Dict], np.ndarray]
-    data_dim: Callable[[Dict], int]
-    default_omega: float = 500.0
+__all__ = ["MSR", "Task"]
 
 
 def _decode(Y_raw, config, valid_mask=None):
@@ -60,5 +39,7 @@ MSR = Task(
     objective=_objective,
     unnormalize_x=_unnorm_x,
     data_dim=lambda cfg: cfg["M"],
+    cond_dim=lambda cfg: cfg["M"],
+    higher_is_better=True,
     default_omega=500.0,
 )

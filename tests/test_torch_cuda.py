@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
@@ -12,7 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from diffsg_tpu_torch.ops import resblock
+from diffsg_tpu_torch.models import unet_msr, unet_nu
+from diffsg_tpu_torch.ops import mega, resblock
+from diffsg_tpu_torch.ops.mega import (launch_mega, mega_inputs as mega_kernel_inputs,
+                                       pack_params, unet_forward_mega,
+                                       unet_forward_mega_reference)
 from diffsg_tpu_torch.ops.resblock import fused_residual_block, resblock_reference
 
 # (rows, in_dim, out_dim, t_proj rows): the cases of tests/test_pallas.py
@@ -83,3 +87,71 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     bad[0] = args[0].double()
     with pytest.raises(TypeError, match="float32"):
         fused_residual_block(*bad)
+
+
+# (net, rows, compute dtype, tile rows): both nets at both types, ragged row
+# counts (37, 1,000) and multi-tile grids at either tile height.
+MEGA_CASES = [
+    ("msr", 37, torch.float32, 0),
+    ("msr", 1000, torch.float32, 16),
+    ("msr", 1000, torch.bfloat16, 0),
+    ("msr", 16384, torch.bfloat16, 32),
+    ("nu", 37, torch.bfloat16, 16),
+    ("nu", 1000, torch.float32, 0),
+    ("nu", 65536, torch.float32, 0),
+]
+
+
+def mega_inputs(net, rows, seed, device="cpu"):
+    """A seeded random net and the sampler's 2B-row inputs on ``device``."""
+    torch.manual_seed(seed)
+    model = (unet_msr(3) if net == "msr" else unet_nu(3)).to(device)
+    rng = np.random.default_rng(seed)
+    y = torch.tensor(rng.normal(size=(rows, model.input_dim)), dtype=torch.float32)
+    c = torch.tensor(rng.uniform(size=(rows, model.cond_dim)), dtype=torch.float32)
+    m = (torch.arange(rows) >= rows // 2).float()[:, None]
+    t = torch.tensor([0.37])
+    return model, [a.to(device) for a in (y, t, c, m)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,rows,dtype,tile_rows", MEGA_CASES)
+def test_cuda_mega_matches_reference(net, rows, dtype, tile_rows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, inputs = mega_inputs(net, rows, seed=rows, device="cuda")
+    cd = None if dtype == torch.float32 else dtype
+    inputs = inputs if cd is None else [a.to(cd) for a in inputs]
+    packed = pack_params(model, dtype)
+    before = mega.LAUNCHES
+    with torch.no_grad():
+        if tile_rows:
+            out = launch_mega(packed, *mega_kernel_inputs(model, *inputs, cd), tile_rows)
+        else:
+            out = unet_forward_mega(model, *inputs, compute_dtype=cd, packed=packed)
+        torch.cuda.synchronize()
+        ref = unet_forward_mega_reference(model, *inputs, compute_dtype=cd)
+    assert mega.LAUNCHES == before + 1
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    # float32: summation order only, through 37 layers (the forward
+    # tolerance, 1e-4 of the output's magnitude). bf16: the same rounding
+    # points, but a reassociation can flip one rounding, and the flip
+    # carries through the net: 2% of the magnitude, as against JAX.
+    tol = (1e-4 if cd is None else 2e-2) * float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_mega_wrapper_rejects_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    model, (y, t, c, m) = mega_inputs("nu", 37, seed=1, device="cuda")
+    with pytest.raises(ValueError, match="batch-1 time"):
+        unet_forward_mega(model, y, t.expand(37).contiguous(), c, m)
+    with pytest.raises(TypeError, match="packed as"):
+        unet_forward_mega(model, y, t, c, m, packed=pack_params(model, torch.bfloat16))
+    with pytest.raises(ValueError, match="tile_rows"):
+        launch_mega(pack_params(model), *mega_kernel_inputs(model, y, t, c, m), tile_rows=8)
+    with pytest.raises(ValueError, match="is on"):
+        unet_forward_mega(model, y, t.cpu(), c, m)

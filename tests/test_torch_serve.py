@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from diffsg_tpu_torch.diffusion import ddim_sample
+from diffsg_tpu_torch.models import unet_apply_fn
 from diffsg_tpu_torch.ops import resblock
 from diffsg_tpu_torch.serve import Solver
 
@@ -50,10 +52,37 @@ def test_plain_and_fused_backends_agree(solver):
                                rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("option", ["best_of", "sampler", "n_steps"])
+@pytest.mark.parametrize("option", ["best_of"])
 def test_unported_solve_options_raise(solver, option):
     with pytest.raises(TypeError, match=option):
         solver.solve(_conditions(4), **{option: 2})
+
+
+def _feasible(P, W):
+    assert np.isfinite(P).all() and (P >= 0).all()
+    np.testing.assert_allclose(P.sum(axis=1), W, rtol=0, atol=1e-4 * W)
+
+
+@pytest.mark.parametrize("option", ["sampler", "n_steps"])
+def test_ddim_solve_options(solver, option):
+    X = _conditions(16, seed=5)
+    W = solver.config["W"]
+    if option == "sampler":
+        # DDIM over all T steps: ddim_sample on y_T drawn from the seed.
+        P = solver.solve(X, omega=0.0, sampler="ddim", seed=3)
+        init = torch.randn((16, 3), generator=torch.Generator().manual_seed(3))
+        y0 = ddim_sample(unet_apply_fn(solver.model, "fused"), solver.sched,
+                         torch.from_numpy(X), 0.0, 3, init_noise=init, skip_uncond=True)
+        np.testing.assert_array_equal(P, solver.task.decode(y0, solver.config).numpy())
+        _feasible(P, W)
+        with pytest.raises(ValueError, match="unknown sampler"):
+            solver.solve(X, sampler="euler")
+    else:
+        P5 = solver.solve(X, sampler="ddim", n_steps=5, seed=1)
+        _feasible(P5, W)
+        assert not np.array_equal(P5, solver.solve(X, sampler="ddim", n_steps=10, seed=1))
+        with pytest.raises(ValueError, match="DDIM options"):
+            solver.solve(X, n_steps=5)
 
 
 def test_entry_points_raise_without_a_card():

@@ -91,4 +91,4 @@ def test_attention_configs_are_rejected():
     with pytest.raises(NotImplementedError):
         UNet1D(is_attn=(True, False, False))
     with pytest.raises(ValueError, match="unknown backend"):
-        unet_apply_fn(unet_msr(3), "mega")
+        unet_apply_fn(unet_msr(3), "pallas")
