@@ -18,6 +18,11 @@ their answers:
   0.125) through ``serve.Solver`` with the ``mega`` backend at B = 524,288,
   and held to the JAX package's answer on the same inputs.
 
+The whole-UNet kernel is also held to its plain version on a net of the
+shapes of ``ckpts/ddpm_msr_80c_budget`` (proj 256, dims 256-128-64-32,
+input 80, condition 81) with seeded random weights, the widest net the
+repository ships.
+
 Every phase prints one JSON line with the seconds since start; any failure
 raises and exits non-zero. The last three lines are the ``kernels``
 summary, the card's name and power limit as ``nvidia-smi`` gives them, and
@@ -53,6 +58,9 @@ RESBLOCK_REPLACES = "diffsg_tpu/ops/pallas_kernels.py:71"
 RESBLOCK_SOURCE = "diffsg_tpu_torch/csrc/resblock.cu"
 MEGA_REPLACES = "diffsg_tpu/ops/pallas_mega.py:131"
 MEGA_SOURCE = "diffsg_tpu_torch/csrc/mega.cu"
+# The shapes of ckpts/ddpm_msr_80c_budget, ddpm_msr_80c_wf250k, ddpm_multi_80
+# and ddpm_multi_zoo.
+P256 = dict(input_dim=80, proj_dim=256, cond_dim=81, dims=(256, 128, 64, 32), n_blocks=2)
 # Mean nu_rate of the JAX package on the nu_vs_jax inputs (B = 4,096
 # conditions and y_T from np.random.default_rng(0), DDIM-3, omega 0.125,
 # flax forward, nu_direct decode), computed on the CPU by
@@ -174,7 +182,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from diffsg_tpu_torch.baselines import waterfilling
     from diffsg_tpu_torch.diffusion import cfg_sample, ddim_sample
-    from diffsg_tpu_torch.models import unet_apply_fn, unet_forward_fused
+    from diffsg_tpu_torch.models import UNet1D, unet_apply_fn, unet_forward_fused
     from diffsg_tpu_torch.ops import _build, mega, msr_sum_rate, nu_rate, resblock
     from diffsg_tpu_torch.ops.resblock import (fused_residual_block, resblock_params_tuple,
                                                resblock_reference)
@@ -246,10 +254,16 @@ def main() -> int:
     # -- mega_kernel: the whole-UNet kernel against its plain version ----------
     nu_solver = Solver.from_checkpoint(NU_CKPT, task="nu_direct", backend="mega")
     nu_model = nu_solver.model
+    torch.manual_seed(0)
+    p256_model = UNet1D(**P256).to(dev)
     mega_cases = [("msr", model, ROWS, torch.float32), ("msr", model, ROWS, torch.bfloat16),
                   ("nu", nu_model, 2 * NU_B, torch.float32),
                   ("nu", nu_model, 2 * NU_B, torch.bfloat16),
-                  ("msr", model, 1000, torch.float32), ("nu", nu_model, 1000, torch.bfloat16)]
+                  ("p256", p256_model, ROWS, torch.float32),
+                  ("p256", p256_model, ROWS, torch.bfloat16),
+                  ("msr", model, 1000, torch.float32), ("nu", nu_model, 1000, torch.bfloat16),
+                  ("p256", p256_model, 1000, torch.float32),
+                  ("p256", p256_model, 1000, torch.bfloat16)]
     mega_rows = []
     for net, net_model, rows, dtype in mega_cases:
         cd = None if dtype == torch.float32 else dtype
@@ -283,12 +297,13 @@ def main() -> int:
                                             f"{mean_err} > {mean_tol}")
                 del noise
             check(err <= tol, f"mega {net} {dtype} rows {rows}: max abs err {err} > {tol}")
-            big = rows > ROWS
+            big = rows > ROWS or (net == "p256" and rows >= ROWS)
             reps, replays = (3, 2) if big else (20, 3)
             k_ms = graph_ms(lambda: mega.launch_mega(packed, ys, sc, st), reps, replays)
             tile_ms = {tr: graph_ms(lambda: mega.launch_mega(packed, ys, sc, st, tr), reps,
                                     replays)
-                       for tr in (16, 32) if rows >= ROWS}
+                       for tr in mega.TILE_ROWS[dtype]
+                       if rows >= ROWS and mega.mega_smem_bytes(packed, dtype, tr) <= mega.SMEM_MAX}
             w_ms = graph_ms(lambda: mega.unet_forward_mega(net_model, y, t, cond, mask, cd,
                                                            packed), reps, replays)
             p_ms = graph_ms(lambda: mega.unet_forward_mega_reference(net_model, y, t, cond,
@@ -425,9 +440,11 @@ def main() -> int:
     check(n_mega == 2 * 100 and n_fused == 0,
           f"mega bf16 path: 100 launches per request, counted {n_mega} and {n_fused}")
     serve_msr_bf16_launches = n_mega
-    for r in bf16_reqs:
+    for r, fr in zip(bf16_reqs, mega_reqs):
         r["ratio"] = score(r["P"])
         check(r["ratio"] >= 0.99, f"bf16 mean waterfilling ratio {r['ratio']} < 0.99")
+        check(abs(r["ratio"] - fr["ratio"]) <= 1e-3,
+              f"seed {r['seed']}: bf16 ratio {r['ratio']} vs f32 mega {fr['ratio']}")
     emit("serve_msr_mega_bf16", B=SERVE_B, T=solver.sched.T, omega=solver.task.default_omega,
          launches=n_mega, requests=public(bf16_reqs, "ratio"),
          solutions_per_s=rate_per_s(bf16_reqs, SERVE_B),
@@ -525,8 +542,8 @@ def main() -> int:
          "per": f"one MSR-3c float32 forward at {ROWS} rows; launches over serve_msr_mega "
                 f"({serve_msr_mega_launches}), serve_msr_mega_bf16 ({serve_msr_bf16_launches}) "
                 f"and serve_nu ({serve_nu_launches})",
-         "cases": [{k: r[k] for k in ("net", "dtype", "rows", "max_abs_err", "kernel_ms",
-                                      "plain_ms", "bound_ms", "bound_by")}
+         "cases": [{k: r[k] for k in ("net", "dtype", "rows", "tile_rows", "max_abs_err",
+                                      "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
                    for r in mega_rows]},
     ]}), flush=True)
     print(smi, flush=True)

@@ -19,11 +19,20 @@ the compute type. The output is float32 either way.
 ``unet_forward_mega`` takes the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; there is no fallback
 between the two.
+
+The packed layout: every Dense is stored (in, out) with both dimensions
+padded to a multiple of 16 and the pad zero-filled, and every array starts
+on a multiple of 16 values (32 bytes or more), as the tensor-core loads
+need. The skip stack lives in a scratch buffer in device memory, one slice
+of (tile rows x ``skip_width``) per CTA of the persistent grid, which the
+wrapper allocates; shared memory holds the rest of a tile
+(``mega_smem_bytes``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional, Tuple
 
@@ -44,13 +53,27 @@ FEATURE_PROJ, BLOCK, RESAMPLE, HEAD = 0, 1, 2, 3
 # Layer flags.
 F_SHORTCUT, F_PUSH, F_CONCAT = 1, 2, 4
 # Columns of one table row (int32). The weight offsets index the packed
-# buffer; dense layers and the head use W1/B1 (and the head G1/BE1).
+# buffer; dense layers and the head use W1/B1 (and the head G1/BE1). LDW is
+# the padded output width: the row stride of every Dense of the layer.
 (K_KIND, K_IN, K_OUT, K_FLAGS, K_SKIP_OFF, K_SKIP_W, K_TPROJ,
  K_G1, K_BE1, K_W1, K_B1, K_WT, K_BT, K_G2, K_BE2, K_W2, K_B2, K_WC, K_BC,
- K_G3, K_BE3, K_W3, K_B3, K_WS, K_BS) = range(25)
+ K_G3, K_BE3, K_W3, K_B3, K_WS, K_BS, K_LDW) = range(26)
 TABLE_COLS = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: The tile heights (rows per CTA) the kernel is built for, per compute type:
+#: float32 products are SIMT FMAs, bf16 products run on the tensor cores.
+TILE_ROWS = {torch.float32: (16, 32), torch.bfloat16: (32, 64, 128)}
+#: Shared memory a CTA may have on sm_90, and the most that still lets two
+#: CTAs share an SM (each also reserves 1 KB of the SM's 228 KB).
+SMEM_MAX = 232_448
+SMEM_TWO_PER_SM = 113 * 1024
+_PAD = 16          # Dense dimensions and array starts, in values
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 class MegaParams(NamedTuple):
@@ -69,6 +92,53 @@ class MegaParams(NamedTuple):
     cond_dim: int              # C
 
 
+def _ld(width: int, dtype: torch.dtype) -> int:
+    """Row stride of a shared-memory tile ``width`` values wide: a multiple
+    of 4 in float32; in bfloat16 the width padded to 16 plus 8, so that the
+    tensor cores' 16-wide loads stay aligned and rows start on other banks."""
+    return _round_up(width, 4) if dtype == torch.float32 else _round_up(width, 16) + 8
+
+
+def _smem_bytes(dtype: torch.dtype, tile_rows: int, D: int, C: int, max_in: int,
+                max_out: int, time_dim: int, n_tproj: int) -> int:
+    # The sizing of csrc/mega.cu::smem_bytes, value for value; in bf16 each
+    # of the 8 warps also has a 16 x 16 float32 staging tile.
+    size, stage = (2, 4 * 8 * 256) if dtype == torch.bfloat16 else (4, 0)
+    per_row = (_ld(D, dtype) + _ld(C, dtype) + 2 * _ld(max(max_in, max_out), dtype)
+               + _ld(max_out, dtype))
+    return (stage + 4 * _round_up(n_tproj, 8)
+            + size * (_round_up(time_dim, 16) + tile_rows * per_row))
+
+
+def mega_smem_bytes(packed: MegaParams, dtype: torch.dtype, tile_rows: int) -> int:
+    """Dynamic shared memory of one CTA of the kernel for ``packed``'s net
+    in ``dtype`` at ``tile_rows`` rows per tile, as the launcher sizes it:
+    the time projections, st, and the y, sc, x, swish(LN(.)) and h tiles
+    (and in bf16 the warps' staging tiles)."""
+    return _smem_bytes(dtype, tile_rows, packed.input_dim, packed.cond_dim, packed.max_in,
+                       packed.max_out, packed.time_dim, packed.n_tproj)
+
+
+def mega_tile_rows(packed: MegaParams, rows: int, sms: int) -> int:
+    """The tile height the wrapper launches ``rows`` rows at on a card of
+    ``sms`` SMs: the tallest that fits two CTAs on an SM and still gives
+    every SM a tile; else the tallest that fits one CTA and gives every SM
+    a tile; else (few rows) the lowest that fits (``pack_params`` refused
+    a net for which none fits)."""
+    dtype = packed.weights.dtype
+    fits = [r for r in TILE_ROWS[dtype] if mega_smem_bytes(packed, dtype, r) <= SMEM_MAX]
+    full = [r for r in fits if -(-rows // r) >= sms]
+    two = [r for r in full if mega_smem_bytes(packed, dtype, r) <= SMEM_TWO_PER_SM]
+    return max(two or full or [min(fits)])
+
+
+def mega_grid(packed: MegaParams, rows: int, tile_rows: int, sms: int) -> int:
+    """CTAs of the persistent grid: as many as are resident at once (two
+    per SM where their shared memory allows), at most one per tile."""
+    two = mega_smem_bytes(packed, packed.weights.dtype, tile_rows) <= SMEM_TWO_PER_SM
+    return min(-(-rows // tile_rows), (2 if two else 1) * sms)
+
+
 def _check_model(model: "UNet1D") -> None:
     widths = (model.proj_dim, *model.dims)
     if any(w % 4 for w in widths):
@@ -79,24 +149,24 @@ def pack_params(model: "UNet1D", dtype: Optional[torch.dtype] = None,
                 device: Optional[torch.device] = None) -> MegaParams:
     """Pack ``model``'s weights (all but the time MLP, which runs outside)
     into one buffer of ``dtype`` (float32 when None) on ``device`` (the
-    model's when None), and build the layer table from ``unet_topology``."""
+    model's when None), and build the layer table from ``unet_topology``.
+    Raises ValueError, with the footprint, for a net too wide for any tile
+    height of the kernel."""
     _check_model(model)
     dtype = torch.float32 if dtype is None else dtype
     if dtype not in _DTYPES:
         raise TypeError(f"the mega kernel computes in float32 or bfloat16, not {dtype}")
     if device is None:
         device = model.feature_proj.kernel.device
-    chunks: List[torch.Tensor] = []
+    pieces: List[Tuple[int, torch.Tensor, Tuple[int, ...]]] = []   # (offset, array, padded shape)
     size = 0
 
     def put(t: torch.Tensor) -> int:
         nonlocal size
-        flat = t.detach().reshape(-1).float()
-        off, pad = size, -flat.numel() % 8   # keep every array 16-byte aligned
-        chunks.append(flat)
-        if pad:
-            chunks.append(flat.new_zeros(pad))
-        size += flat.numel() + pad
+        shape = tuple(_round_up(n, _PAD) for n in t.shape)
+        pieces.append((size, t.detach(), shape))
+        off = size
+        size += math.prod(shape)
         return off
 
     rows: List[List[int]] = []
@@ -107,6 +177,7 @@ def pack_params(model: "UNet1D", dtype: Optional[torch.dtype] = None,
     def row(kind: int, d_in: int, d_out: int) -> List[int]:
         r = [0] * TABLE_COLS
         r[K_KIND], r[K_IN], r[K_OUT] = kind, d_in, d_out
+        r[K_LDW] = _round_up(d_out, _PAD)
         rows.append(r)
         return r
 
@@ -142,40 +213,51 @@ def pack_params(model: "UNet1D", dtype: Optional[torch.dtype] = None,
             r[K_SKIP_OFF], r[K_SKIP_W] = skip.pop()
         return r
 
-    with torch.no_grad():
-        r = row(FEATURE_PROJ, model.input_dim, model.proj_dim)
-        dense(r, model.feature_proj)
+    r = row(FEATURE_PROJ, model.input_dim, model.proj_dim)
+    dense(r, model.feature_proj)
+    push(r)
+    for kind, m in zip(model.down_kinds, model.down):
+        if kind == "block":
+            r = block(m.res, concat=False)
+        else:
+            r = row(RESAMPLE, *m.lin.kernel.shape)
+            dense(r, m.lin)
         push(r)
-        for kind, m in zip(model.down_kinds, model.down):
-            if kind == "block":
-                r = block(m.res, concat=False)
-            else:
-                r = row(RESAMPLE, *m.lin.kernel.shape)
-                dense(r, m.lin)
-            push(r)
-        block(model.middle.res1, concat=False)
-        block(model.middle.res2, concat=False)
-        for kind, m in zip(model.up_kinds, model.up):
-            if kind == "block":
-                block(m.res, concat=True)
-            else:
-                r = row(RESAMPLE, *m.lin.kernel.shape)
-                dense(r, m.lin)
-        r = row(HEAD, model.proj_dim, model.input_dim)
-        r[K_G1], r[K_BE1] = put(model.norm.scale), put(model.norm.bias)
-        dense(r, model.final)
-        if skip:
-            raise AssertionError(f"skip stack not empty after the up path: {skip}")
-        weights = torch.cat(chunks).to(device=device, dtype=dtype).contiguous()
+    block(model.middle.res1, concat=False)
+    block(model.middle.res2, concat=False)
+    for kind, m in zip(model.up_kinds, model.up):
+        if kind == "block":
+            block(m.res, concat=True)
+        else:
+            r = row(RESAMPLE, *m.lin.kernel.shape)
+            dense(r, m.lin)
+    r = row(HEAD, model.proj_dim, model.input_dim)
+    r[K_G1], r[K_BE1] = put(model.norm.scale), put(model.norm.bias)
+    dense(r, model.final)
+    if skip:
+        raise AssertionError(f"skip stack not empty after the up path: {skip}")
 
-    table = torch.tensor(rows, dtype=torch.int32, device=device)
     blocks = [r for r in rows if r[K_KIND] == BLOCK]
+    max_in = max(r[K_IN] for r in blocks)
+    max_out = max(r[K_OUT] for r in rows if r[K_KIND] != HEAD)
+    tile = TILE_ROWS[dtype][0]
+    smem = _smem_bytes(dtype, tile, model.input_dim, model.cond_dim, max_in, max_out,
+                       model.proj_dim * 4, n_tproj)
+    if smem > SMEM_MAX:      # checked before any weight is read
+        raise ValueError(f"the mega kernel needs {smem:,} bytes of shared memory for a "
+                         f"{tile}-row {str(dtype).replace('torch.', '')} tile of this net, "
+                         f"more than the {SMEM_MAX:,} a CTA can have")
+
+    buf = torch.zeros(size)
+    with torch.no_grad():
+        for off, t, shape in pieces:
+            view = buf[off:off + math.prod(shape)].view(shape)
+            view[tuple(slice(0, n) for n in t.shape)] = t.float().cpu()
     return MegaParams(
-        weights=weights, table=table, skip_width=skip_top,
-        max_in=max(r[K_IN] for r in blocks),
-        max_out=max(r[K_OUT] for r in rows if r[K_KIND] != HEAD),
-        n_tproj=n_tproj, time_dim=model.proj_dim * 4,
-        input_dim=model.input_dim, cond_dim=model.cond_dim)
+        weights=buf.to(device=device, dtype=dtype), table=torch.tensor(rows, dtype=torch.int32,
+                                                                       device=device),
+        skip_width=skip_top, max_in=max_in, max_out=max_out, n_tproj=n_tproj,
+        time_dim=model.proj_dim * 4, input_dim=model.input_dim, cond_dim=model.cond_dim)
 
 
 # -- the function, in plain PyTorch ---------------------------------------------
@@ -269,7 +351,7 @@ def unet_forward_mega_reference(model: "UNet1D", y: torch.Tensor, t: torch.Tenso
 # -- the kernel -------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 6 + [ctypes.c_int] * 11 + [_P]
+_ARGTYPES = [_P] * 7 + [ctypes.c_int] * 12 + [_P]
 
 
 def _library() -> ctypes.CDLL:
@@ -283,6 +365,11 @@ def _library() -> ctypes.CDLL:
         lib.diffsg_unet_mega_last_launch.argtypes = [ctypes.c_void_p]
         lib.diffsg_unet_mega_last_launch.restype = None
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def unet_forward_mega(model: "UNet1D", y: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
@@ -316,13 +403,15 @@ def launch_mega(packed: MegaParams, y: torch.Tensor, sc: torch.Tensor, st: torch
                 tile_rows: int = 0) -> torch.Tensor:
     """One launch of the kernel on the inputs ``mega_inputs`` makes (all on
     one CUDA device, of the packed weights' type); returns float32 (B, D).
-    ``tile_rows`` is the rows per CTA, 16 or 32; 0 lets the launcher choose
-    32 where two CTAs still fit on an SM, else 16."""
+    ``tile_rows`` is the rows per CTA, one of ``TILE_ROWS[dtype]``; 0 takes
+    ``mega_tile_rows``'s choice. The skip stack's scratch is allocated here,
+    on the current stream, one (tile_rows, skip_width) slice per CTA."""
     dev, dtype = y.device, packed.weights.dtype
     if dev.type != "cuda":
         raise ValueError(f"launch_mega runs on a CUDA device, not {dev}")
-    if tile_rows not in (0, 16, 32):
-        raise ValueError(f"tile_rows must be 0, 16 or 32, got {tile_rows}")
+    if tile_rows and tile_rows not in TILE_ROWS[dtype]:
+        raise ValueError(f"tile_rows must be 0 or one of {TILE_ROWS[dtype]} for {dtype}, "
+                         f"got {tile_rows}")
     rows = y.shape[0]
     for name, a, shape in (("y", y, (rows, packed.input_dim)), ("sc", sc, (rows, packed.cond_dim)),
                            ("st", st, (1, packed.time_dim)), ("weights", packed.weights, None),
@@ -338,14 +427,18 @@ def launch_mega(packed: MegaParams, y: torch.Tensor, sc: torch.Tensor, st: torch
     out = torch.empty((rows, packed.input_dim), device=dev, dtype=torch.float32)
     if rows == 0:
         return out
+    sms = _sm_count(dev.index)
+    tile_rows = tile_rows or mega_tile_rows(packed, rows, sms)
+    grid = mega_grid(packed, rows, tile_rows, sms)
+    skip = torch.empty(grid * tile_rows * packed.skip_width, device=dev, dtype=dtype)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.diffsg_unet_mega(
             y.data_ptr(), sc.data_ptr(), st.data_ptr(), packed.weights.data_ptr(),
-            packed.table.data_ptr(), out.data_ptr(),
+            packed.table.data_ptr(), out.data_ptr(), skip.data_ptr(),
             _DTYPES[dtype], rows, packed.table.shape[0], packed.input_dim,
             packed.cond_dim, packed.time_dim, packed.skip_width, packed.max_in,
-            packed.max_out, packed.n_tproj, tile_rows,
+            packed.max_out, packed.n_tproj, tile_rows, grid,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.diffsg_cuda_error_string(err).decode()

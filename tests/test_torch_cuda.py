@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from diffsg_tpu_torch.models import unet_msr, unet_nu
+from diffsg_tpu_torch.models import UNet1D, unet_msr, unet_nu
 from diffsg_tpu_torch.ops import mega, resblock
 from diffsg_tpu_torch.ops.mega import (launch_mega, mega_inputs as mega_kernel_inputs,
                                        pack_params, unet_forward_mega,
@@ -89,23 +89,45 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         fused_residual_block(*bad)
 
 
-# (net, rows, compute dtype, tile rows): both nets at both types, ragged row
-# counts (37, 1,000) and multi-tile grids at either tile height.
+# (net, rows, compute dtype, tile rows): the three nets at both types,
+# ragged row counts (37, 1,000) and multi-tile grids at every tile height
+# (float32 16 and 32 rows, SIMT; bf16 32, 64 and 128 rows, tensor cores).
+# "p256" has the shapes of ckpts/ddpm_msr_80c_budget (proj 256, a 512-wide
+# concat, a skip stack of 2,208 values per row).
+# "odd" has widths that are no multiple of 16 (20, 12, 8; concats of 40 and
+# 24), so its tensor-core products read pad columns the kernel must zero.
 MEGA_CASES = [
     ("msr", 37, torch.float32, 0),
     ("msr", 1000, torch.float32, 16),
     ("msr", 1000, torch.bfloat16, 0),
-    ("msr", 16384, torch.bfloat16, 32),
-    ("nu", 37, torch.bfloat16, 16),
+    ("msr", 16384, torch.bfloat16, 64),
+    ("nu", 37, torch.bfloat16, 128),
     ("nu", 1000, torch.float32, 0),
     ("nu", 65536, torch.float32, 0),
+    ("msr", 16384, torch.bfloat16, 128),
+    ("msr", 1000, torch.bfloat16, 64),
+    ("nu", 65536, torch.bfloat16, 64),
+    ("nu", 1000, torch.bfloat16, 128),
+    ("nu", 65536, torch.bfloat16, 32),
+    ("p256", 37, torch.float32, 0),
+    ("p256", 4096, torch.float32, 0),
+    ("p256", 4096, torch.float32, 32),
+    ("p256", 37, torch.bfloat16, 0),
+    ("p256", 4096, torch.bfloat16, 0),
+    ("odd", 1000, torch.bfloat16, 0),
+    ("odd", 1000, torch.bfloat16, 128),
+    ("odd", 37, torch.float32, 0),
 ]
+NETS = {"msr": lambda: unet_msr(3), "nu": lambda: unet_nu(3),
+        "p256": lambda: UNet1D(input_dim=80, proj_dim=256, cond_dim=81,
+                               dims=(256, 128, 64, 32), n_blocks=2),
+        "odd": lambda: UNet1D(input_dim=3, proj_dim=20, cond_dim=4, dims=(12, 8), n_blocks=2)}
 
 
 def mega_inputs(net, rows, seed, device="cpu"):
     """A seeded random net and the sampler's 2B-row inputs on ``device``."""
     torch.manual_seed(seed)
-    model = (unet_msr(3) if net == "msr" else unet_nu(3)).to(device)
+    model = NETS[net]().to(device)
     rng = np.random.default_rng(seed)
     y = torch.tensor(rng.normal(size=(rows, model.input_dim)), dtype=torch.float32)
     c = torch.tensor(rng.uniform(size=(rows, model.cond_dim)), dtype=torch.float32)
@@ -153,5 +175,9 @@ def test_cuda_mega_wrapper_rejects_what_the_kernel_does_not_take():
         unet_forward_mega(model, y, t, c, m, packed=pack_params(model, torch.bfloat16))
     with pytest.raises(ValueError, match="tile_rows"):
         launch_mega(pack_params(model), *mega_kernel_inputs(model, y, t, c, m), tile_rows=8)
+    bf = [a.bfloat16() for a in (y, t, c, m)]
+    with pytest.raises(ValueError, match="tile_rows"):
+        launch_mega(pack_params(model, torch.bfloat16),
+                    *mega_kernel_inputs(model, *bf, torch.bfloat16), tile_rows=16)
     with pytest.raises(ValueError, match="is on"):
         unet_forward_mega(model, y, t.cpu(), c, m)

@@ -11,7 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
-from diffsg_tpu.models import unet_msr as jax_unet_msr, unet_nu as jax_unet_nu
+from diffsg_tpu.models import UNet1D as JaxUNet1D, unet_msr as jax_unet_msr, unet_nu as jax_unet_nu
 from diffsg_tpu.models.unet1d_pallas import unet_topology as jax_topology
 from diffsg_tpu.ops.pallas_mega import unet_forward_mega as jax_mega
 from diffsg_tpu.utils import load_checkpoint as jax_load_checkpoint
@@ -25,6 +25,13 @@ from diffsg_tpu_torch.utils import params_from_jax
 torch.set_num_threads(1)
 
 CKPTS = pathlib.Path(__file__).resolve().parent.parent / "ckpts"
+# The widest net the repo ships without attention: ckpts/ddpm_msr_80c_budget
+# (also ddpm_msr_80c_wf250k, ddpm_multi_80, ddpm_multi_zoo).
+P256 = dict(input_dim=80, proj_dim=256, cond_dim=81, dims=(256, 128, 64, 32), n_blocks=2)
+
+
+def unet_p256():
+    return UNet1D(**P256)
 
 
 def _inputs(B, D, C, seed=0):
@@ -110,23 +117,58 @@ def test_bf16_matches_jax_mega_bf16(msr_random):
 @pytest.mark.parametrize("ckpt,build,jbuild,D,C", [
     ("ddpm_msr_3c_T100", lambda: unet_msr(3), lambda: jax_unet_msr(3), 3, 3),
     ("ddpm_nu_3u_aug32_s8c", lambda: unet_nu(3), lambda: jax_unet_nu(3), 5, 6),
+    ("ddpm_msr_80c_budget", unet_p256,
+     lambda: JaxUNet1D(**P256, is_attn=(False,) * 4, middle_attn=False), 80, 81),
 ])
 def test_checkpoint_forward_matches_flax(ckpt, build, jbuild, D, C):
     params = jax_load_checkpoint(str(CKPTS / ckpt))["params"]
     model = build()
     model.load_state_dict(params_from_jax(params), strict=True)
-    inputs = _inputs(48, D, C, seed=D)
+    B = 16 if D == 80 else 48
+    inputs = _inputs(B, D, C, seed=D)
     y, t, c, m = inputs
-    flax_out = np.asarray(jbuild().apply({"params": params}, y, np.broadcast_to(t, (48,)), c, m))
+    flax_out = np.asarray(jbuild().apply({"params": params}, y, np.broadcast_to(t, (B,)), c, m))
     with torch.no_grad():
         got = unet_apply_fn(model, "mega")(*_torch(inputs)).numpy()
     # The forward tolerance of test_torch_unet.py: 1e-4 of the output's magnitude.
     np.testing.assert_allclose(got, flax_out, rtol=0, atol=1e-4 * np.abs(flax_out).max())
 
 
+def _packed_arrays(model):
+    """(table row, column, module parameter) of every array ``pack_params``
+    packs, walking the net in its own order."""
+    rows = [("feature_proj", model.feature_proj)]
+    rows += [(k, m.res if k == "block" else m.lin) for k, m in zip(model.down_kinds, model.down)]
+    rows += [("block", model.middle.res1), ("block", model.middle.res2)]
+    rows += [(k, m.res if k == "block" else m.lin) for k, m in zip(model.up_kinds, model.up)]
+    rows += [("head", model)]
+    out = []
+    for i, (kind, m) in enumerate(rows):
+        if kind == "block":
+            names = [(mega.K_G1, m.norm1.scale), (mega.K_BE1, m.norm1.bias),
+                     (mega.K_W1, m.lin1.kernel), (mega.K_B1, m.lin1.bias),
+                     (mega.K_WT, m.time_emb.kernel), (mega.K_BT, m.time_emb.bias),
+                     (mega.K_G2, m.norm2.scale), (mega.K_BE2, m.norm2.bias),
+                     (mega.K_W2, m.lin2.kernel), (mega.K_B2, m.lin2.bias),
+                     (mega.K_WC, m.cond_emb.kernel), (mega.K_BC, m.cond_emb.bias),
+                     (mega.K_G3, m.norm3.scale), (mega.K_BE3, m.norm3.bias),
+                     (mega.K_W3, m.lin3.kernel), (mega.K_B3, m.lin3.bias)]
+            if m.shortcut is not None:
+                names += [(mega.K_WS, m.shortcut.kernel), (mega.K_BS, m.shortcut.bias)]
+        elif kind == "head":
+            names = [(mega.K_G1, m.norm.scale), (mega.K_BE1, m.norm.bias),
+                     (mega.K_W1, m.final.kernel), (mega.K_B1, m.final.bias)]
+        else:
+            names = [(mega.K_W1, m.kernel), (mega.K_B1, m.bias)]
+        out += [(i, col, p.detach()) for col, p in names]
+    return out
+
+
 @pytest.mark.parametrize("build,dims", [(lambda: unet_msr(3), (64, 32, 16, 8)),
-                                        (lambda: unet_nu(3), (32, 16, 8))])
+                                        (lambda: unet_nu(3), (32, 16, 8)),
+                                        (unet_p256, P256["dims"])])
 def test_pack_params_table_reproduces_topology(build, dims):
+    torch.manual_seed(0)
     model = build()
     packed = pack_params(model, torch.bfloat16, torch.device("cpu"))
     keys = ("kind", "in", "out", "flags", "skip_off", "skip_w")
@@ -156,15 +198,123 @@ def test_pack_params_table_reproduces_topology(build, dims):
     assert stack == []
     assert packed.skip_width == sum(r["skip_w"] for r in table if r["flags"] & mega.F_PUSH)
     assert packed.weights.dtype == torch.bfloat16
-    # Every weight but the time MLP's, each array padded to 8 values.
-    n = sum(p.numel() + (-p.numel() % 8) for name, p in model.named_parameters()
-            if not name.startswith("time_emb."))
+    # The padded-width column is the output width rounded up to 16.
+    rows = packed.table.tolist()
+    assert [r[mega.K_LDW] for r in rows] == [-(-r[mega.K_OUT] // 16) * 16 for r in rows]
+    # Every weight but the time MLP's, each array padded to 16 in every
+    # dimension.
+    n = sum(int(np.prod([-(-d // 16) * 16 for d in p.shape]))
+            for name, p in model.named_parameters() if not name.startswith("time_emb."))
     assert packed.weights.numel() == n
-    # The first block's lin1 kernel lies where its row says.
-    r = packed.table[1].tolist()
-    w1 = packed.weights[r[mega.K_W1]:r[mega.K_W1] + r[mega.K_IN] * r[mega.K_OUT]]
-    torch.testing.assert_close(w1.view(r[mega.K_IN], r[mega.K_OUT]),
+    # The first block's lin1 kernel lies where its row says, rows ldw apart.
+    r = rows[1]
+    k_in, ldw = -(-r[mega.K_IN] // 16) * 16, r[mega.K_LDW]
+    w1 = packed.weights[r[mega.K_W1]:r[mega.K_W1] + k_in * ldw].view(k_in, ldw)
+    torch.testing.assert_close(w1[:r[mega.K_IN], :r[mega.K_OUT]],
                                model.down[0].res.lin1.kernel.detach().bfloat16())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("build", [lambda: unet_msr(3), lambda: unet_nu(3), unet_p256],
+                         ids=["msr", "nu", "p256"])
+def test_pack_params_padded_layout(build, dtype):
+    """Every array of the net (all but the time MLP) lies where its table
+    row says, starts on a multiple of 32 bytes, each Dense padded to 16 in
+    both dimensions; unpacked it is the model's own, and every pad is 0."""
+    torch.manual_seed(1)
+    model = build()
+    packed = pack_params(model, dtype, torch.device("cpu"))
+    w, rows = packed.weights, packed.table.tolist()
+    covered = torch.zeros(w.numel(), dtype=torch.bool)
+    arrays = _packed_arrays(model)
+    for i, col, p in arrays:
+        off = rows[i][col]
+        assert off * w.element_size() % 32 == 0, (i, col, off)
+        shape = tuple(-(-n // 16) * 16 for n in p.shape)
+        if p.dim() == 2:
+            assert shape[1] == rows[i][mega.K_LDW]
+        n = int(np.prod(shape))
+        assert not covered[off:off + n].any(), f"array ({i}, {col}) overlaps another"
+        covered[off:off + n] = True
+        view = w[off:off + n].view(shape)
+        inner = tuple(slice(0, d) for d in p.shape)
+        torch.testing.assert_close(view[inner], p.to(dtype), rtol=0, atol=0)
+        pad = view.clone()
+        pad[inner] = 0
+        assert not pad.any(), f"nonzero pad in array ({i}, {col})"
+    assert bool(covered.all()), "the buffer holds values of no array"
+    n_params = sum(p.numel() for name, p in model.named_parameters()
+                   if not name.startswith("time_emb."))
+    assert sum(p.numel() for _, _, p in arrays) == n_params
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("build", [lambda: unet_msr(3), lambda: unet_nu(3), unet_p256],
+                         ids=["msr", "nu", "p256"])
+def test_mega_smem_bytes_every_shipped_net_fits(build, dtype):
+    """Every attention-free net the repo ships has a tile height that fits a
+    CTA, and the wrapper's choice at the serving row counts is one of them."""
+    model = build()
+    packed = pack_params(model, dtype, torch.device("cpu"))
+    sizes = {r: mega.mega_smem_bytes(packed, dtype, r) for r in mega.TILE_ROWS[dtype]}
+    assert sizes[min(sizes)] <= mega.SMEM_MAX, sizes
+    # Taller tiles need more: each row adds its tiles, nothing else grows.
+    assert sorted(sizes.values()) == [sizes[r] for r in sorted(sizes)]
+    for rows in (37, 1000, 16384, 1 << 20):
+        tile = mega.mega_tile_rows(packed, rows, sms=132)
+        assert tile in mega.TILE_ROWS[dtype] and sizes[tile] <= mega.SMEM_MAX
+        grid = mega.mega_grid(packed, rows, tile, sms=132)
+        assert 1 <= grid <= -(-rows // tile) and grid <= 2 * 132
+
+
+def test_mega_smem_bytes_reckoned():
+    """The footprints at the tile heights the launcher takes, reckoned by
+    hand from the layout (strides: float32 rounded to 4; bf16 rounded to 16,
+    plus 8): the time projections in float32, st, then per row the y, sc,
+    x, swish(LN(.)) and h tiles."""
+    msr, p256 = pack_params(unet_msr(3)), pack_params(unet_p256())
+    # MSR-3c float32: 1,256 projections, st 512; per row 4 + 4 + 2 x 256 + 128.
+    assert mega.mega_smem_bytes(msr, torch.float32, 32) == 4 * 1256 + 4 * (512 + 32 * 648)
+    # The proj-256 net float32: 3,744 projections, st 1,024; per row
+    # 80 + 84 + 2 x 512 + 256.
+    assert mega.mega_smem_bytes(p256, torch.float32, 16) == 4 * 3744 + 4 * (1024 + 16 * 1444)
+    # Two 32-row float32 CTAs fit an SM on MSR-3c; the proj-256 net takes
+    # 16-row tiles, two to an SM, where the skip stack in shared memory
+    # (2,208 values per row) made even one too many before.
+    assert mega.mega_tile_rows(msr, 16384, 132) == 32
+    assert mega.mega_tile_rows(p256, 16384, 132) == 16
+    assert mega.mega_grid(p256, 16384, 16, 132) == 264
+    assert p256.skip_width == 2208 and msr.skip_width == 744
+    # bf16 adds 8 staging tiles of 16 x 16 floats; strides are the width
+    # rounded to 16, plus 8. MSR-3c per row: 24 + 24 + 2 x 264 + 136.
+    msr_bf, p256_bf = (pack_params(m, torch.bfloat16) for m in (unet_msr(3), unet_p256()))
+    assert mega.mega_smem_bytes(msr_bf, torch.bfloat16, 64) == \
+        8192 + 4 * 1256 + 2 * (512 + 64 * 712)
+    # The proj-256 net per row: 88 + 104 + 2 x 520 + 264.
+    assert mega.mega_smem_bytes(p256_bf, torch.bfloat16, 64) == \
+        8192 + 4 * 3744 + 2 * (1024 + 64 * 1496)
+    # MSR-3c bf16 at 16,384 rows: 64-row tiles, two CTAs to an SM, 256 tiles
+    # (128-row tiles would leave SMs without a tile).
+    assert mega.mega_tile_rows(msr_bf, 16384, 132) == 64
+    assert mega.mega_grid(msr_bf, 16384, 64, 132) == 256
+    assert mega.mega_smem_bytes(msr_bf, torch.bfloat16, 128) > mega.SMEM_TWO_PER_SM
+    # NU bf16 at 1,048,576 rows: 128-row tiles, two CTAs to an SM.
+    nu_bf = pack_params(unet_nu(3), torch.bfloat16)
+    assert mega.mega_tile_rows(nu_bf, 1 << 20, 132) == 128
+    assert mega.mega_grid(nu_bf, 1 << 20, 128, 132) == 264
+    # No 128-row bf16 tile of the proj-256 net fits a CTA.
+    assert mega.mega_smem_bytes(p256_bf, torch.bfloat16, 128) > mega.SMEM_MAX
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_params_refuses_a_net_too_wide_for_any_tile(dtype):
+    # A 3,072-wide concat: more shared memory than a CTA has at any height.
+    # Built on the meta device, so no weight is allocated: the check comes
+    # before any weight is read.
+    with torch.device("meta"):
+        model = UNet1D(input_dim=4, proj_dim=64, cond_dim=4, dims=(1536,), n_blocks=1)
+    with pytest.raises(ValueError, match=r"bytes of shared memory .* more than the 232,448"):
+        pack_params(model, dtype, torch.device("cpu"))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
