@@ -18,10 +18,14 @@ their answers:
   0.125) through ``serve.Solver`` with the ``mega`` backend at B = 524,288,
   and held to the JAX package's answer on the same inputs.
 
-The whole-UNet kernel is also held to its plain version on a net of the
-shapes of ``ckpts/ddpm_msr_80c_budget`` (proj 256, dims 256-128-64-32,
-input 80, condition 81) with seeded random weights, the widest net the
-repository ships.
+The residual-block kernel is held to its plain version at every block
+shape of the MSR-3c forward (16,384 rows) and at the two widest shapes of
+a net of the shapes of ``ckpts/ddpm_msr_80c_budget`` (proj 256, dims
+256-128-64-32, input 80, condition 81) with seeded random weights, the
+widest net the repository ships: 512 -> 256 with a shortcut and 256 -> 256,
+at 16,384 rows and, for 512 -> 256, at a ragged 1,000 rows with a full
+t_proj; each case at every tile height its path is built for. The
+whole-UNet kernel is held to its plain version on MSR-3c, NU and that net.
 
 Every phase prints one JSON line with the seconds since start; any failure
 raises and exits non-zero. The last three lines are the ``kernels``
@@ -51,7 +55,10 @@ ROWS = 16_384          # 2B rows of the CFG fold at B = 8,192
 SERVE_B = 8_192
 NU_B = 524_288         # the JAX package's production NU batch (bench.py)
 NU_OMEGA, NU_STEPS = 0.125, 3
-KERNEL_ATOL = 1e-4     # f32, TF32 off, summation order over <= 256 terms
+# f32, TF32 off, summation order only. The deepest sums (512 terms, the
+# proj-256 blocks' input) of products of O(1) activations and weights of
+# O(1/sqrt(512)) round to a few 1e-6 at the outputs' magnitudes.
+KERNEL_ATOL = 1e-4
 FORWARD_RTOL = 1e-4    # of the output's max magnitude, through 27 blocks
 BF16_MEAN_SHARE = 0.25  # bf16 kernel vs plain: mean error against bf16's own
 RESBLOCK_REPLACES = "diffsg_tpu/ops/pallas_kernels.py:71"
@@ -210,23 +217,35 @@ def main() -> int:
     emit("build", nvcc_s=_build.BUILD_SECONDS, cached=_build.BUILD_SECONDS is None,
          flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas)
 
-    # -- kernel: every (in, out, shortcut) shape of the MSR-3c forward ----------
+    # -- kernel: every (in, out, shortcut) shape of the MSR-3c forward, and the ---
+    # -- proj-256 net's two widest shapes ------------------------------------------
     solver = Solver.from_checkpoint(CKPT, task="msr", backend="fused")
     model = solver.model
-    blocks = [m.res for m in model.down if hasattr(m, "res")]
-    blocks += [model.middle.res1, model.middle.res2]
-    blocks += [m.res for m in model.up if hasattr(m, "res")]
+    torch.manual_seed(0)
+    p256_model = UNet1D(**P256).to(dev)
+
+    def block_shapes(net):
+        blocks = [m.res for m in net.down if hasattr(m, "res")]
+        blocks += [net.middle.res1, net.middle.res2]
+        blocks += [m.res for m in net.up if hasattr(m, "res")]
+        shapes = {}
+        for res in blocks:
+            key = (res.lin1.kernel.shape[0], res.lin1.kernel.shape[1], res.shortcut is not None)
+            shapes.setdefault(key, [res, 0])[1] += 1
+        return blocks, shapes
+
+    blocks, shapes = block_shapes(model)
     check(len(blocks) == 27, f"27 residual blocks, found {len(blocks)}")
-    shapes = {}
-    for res in blocks:
-        key = (res.lin1.kernel.shape[0], res.lin1.kernel.shape[1], res.shortcut is not None)
-        shapes.setdefault(key, [res, 0])[1] += 1
+    p256_shapes = block_shapes(p256_model)[1]
 
     rng = np.random.default_rng(0)
     per_shape = []
-    cases = [(key, ROWS, 1) for key in shapes] + [((256, 128, True), 1000, 1000)]
-    for (din, dout, sc), rows, t_rows in cases:
-        res, per_forward = shapes[(din, dout, sc)]
+    cases = ([("msr", key, ROWS, 1) for key in shapes] + [("msr", (256, 128, True), 1000, 1000)]
+             + [("p256", key, rows, t_rows) for key, rows, t_rows in
+                (((512, 256, True), ROWS, 1), ((256, 256, False), ROWS, 1),
+                 ((512, 256, True), 1000, 1000))])
+    for net, (din, dout, sc), rows, t_rows in cases:
+        res, per_forward = (shapes if net == "msr" else p256_shapes)[(din, dout, sc)]
         x = torch.tensor(rng.normal(size=(rows, din)), dtype=torch.float32, device=dev)
         t_proj = torch.tensor(rng.normal(size=(t_rows, dout)), dtype=torch.float32, device=dev)
         c_proj = torch.tensor(rng.normal(size=(rows, dout)), dtype=torch.float32, device=dev)
@@ -235,27 +254,38 @@ def main() -> int:
         with torch.no_grad():
             out = fused_residual_block(*args)
             torch.cuda.synchronize()
+            launch = resblock.last_launch()
             ref = resblock_reference(*args)
             err = float((out - ref).abs().max())
             check(bool(torch.isfinite(out).all()), f"finite kernel output at {din}->{dout}")
             check(err <= KERNEL_ATOL, f"kernel {din}->{dout} rows {rows}: max abs err {err}")
             k_ms = graph_ms(lambda: fused_residual_block(*args), reps=20, replays=3)
+            tile_ms = {}
+            for tr in resblock.resblock_tile_heights(din, dout):
+                o = fused_residual_block(*args, tile_rows=tr)
+                e = float((o - ref).abs().max())
+                check(e <= KERNEL_ATOL, f"kernel {din}->{dout} rows {rows} tile {tr}: "
+                                        f"max abs err {e}")
+                tile_ms[tr] = graph_ms(lambda: fused_residual_block(*args, tile_rows=tr),
+                                       reps=20, replays=3)
             p_ms = graph_ms(lambda: resblock_reference(*args), reps=20, replays=3)
             k_call_ms = cuda_ms(lambda: fused_residual_block(*args), reps=20)
             p_call_ms = cuda_ms(lambda: resblock_reference(*args), reps=20)
         bound_ms, bound_by = resblock_bound(rows, t_rows, din, dout, sc)
-        row = {"in": din, "out": dout, "shortcut": sc, "rows": rows, "t_rows": t_rows,
-               "per_forward": per_forward if rows == ROWS else 0, "max_abs_err": err,
-               "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None, "kernel_call_ms": k_call_ms, "plain_call_ms": p_call_ms}
+        on_path = net == "msr" and rows == ROWS
+        row = {"net": net, "in": din, "out": dout, "shortcut": sc, "rows": rows,
+               "t_rows": t_rows, "per_forward": per_forward if on_path else 0,
+               "max_abs_err": err, "kernel_ms": k_ms, "tile_ms": tile_ms, "plain_ms": p_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "of_bound": bound_ms / k_ms,
+               "library_ms": None, "kernel_call_ms": k_call_ms, "plain_call_ms": p_call_ms,
+               **launch}
         per_shape.append(row)
         emit("kernel", **row)
+        del x, t_proj, c_proj, args, out, ref
 
     # -- mega_kernel: the whole-UNet kernel against its plain version ----------
     nu_solver = Solver.from_checkpoint(NU_CKPT, task="nu_direct", backend="mega")
     nu_model = nu_solver.model
-    torch.manual_seed(0)
-    p256_model = UNet1D(**P256).to(dev)
     mega_cases = [("msr", model, ROWS, torch.float32), ("msr", model, ROWS, torch.bfloat16),
                   ("nu", nu_model, 2 * NU_B, torch.float32),
                   ("nu", nu_model, 2 * NU_B, torch.bfloat16),
@@ -532,7 +562,12 @@ def main() -> int:
          "bound_ms": sum(bounds.values()), "bound_by": max(bounds, key=bounds.get),
          "library_ms": None,
          "per": f"one MSR-3c forward: the 27 launches at {ROWS} rows; launches over the "
-                f"2 fused serving requests"},
+                f"2 fused serving requests",
+         "cases": [{k: r[k] for k in ("net", "in", "out", "shortcut", "rows", "per_forward",
+                                      "variant", "tile_rows", "grid", "max_abs_err",
+                                      "kernel_ms", "tile_ms", "plain_ms", "bound_ms",
+                                      "bound_by")}
+                   for r in per_shape]},
         {"name": "unet_forward_mega", "route": "cuda", "source": MEGA_SOURCE,
          "replaces": MEGA_REPLACES,
          "launches": serve_msr_mega_launches + serve_msr_bf16_launches + serve_nu_launches,

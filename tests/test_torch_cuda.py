@@ -70,6 +70,50 @@ def test_cuda_kernel_matches_reference(rows, din, dout, t_kind):
     torch.testing.assert_close(out, resblock_reference(*args), rtol=0, atol=1e-4)
 
 
+# (rows, in, out, t_proj rows, tile rows): each path at each tile height it
+# is built for (wide: out classes 32, 64, 128 at 32 and 64 rows, 256 at 32;
+# narrow: 32, 64 and 128 rows at widths 32, 16 and 8), ragged row counts (1, 37, 1,000) and multi-tile grids, the
+# proj-256 net's widest block (512 -> 256 with a shortcut, 512-term sums),
+# the widths on either side of the narrow/wide boundary (32 -> 32, 64 -> 32,
+# 32 -> 64, and the first ones past it: 36 -> 36, 40 -> 32, 48 -> 48,
+# 48 -> 32, 60 -> 60), output widths that are no width class (48, 96, 160),
+# and both kinds of t_proj.
+TILE_CASES = [
+    (1000, 64, 32, "row", 32), (1000, 64, 32, "full", 64),
+    (37, 128, 64, "row", 32), (4096, 128, 64, "full", 64),
+    (1000, 128, 128, "row", 32), (16384, 256, 128, "row", 64),
+    (1000, 256, 128, "full", 64), (1, 256, 128, "row", 64),
+    (16384, 512, 256, "row", 32), (1000, 512, 256, "full", 32), (1, 512, 256, "full", 32),
+    (4096, 256, 256, "row", 32), (37, 256, 256, "full", 32),
+    (1000, 32, 32, "row", 32), (37, 32, 64, "full", 64), (1000, 64, 64, "row", 64),
+    (1000, 96, 48, "full", 64), (37, 160, 160, "row", 32),
+    (1000, 32, 16, "full", 32), (1, 8, 8, "row", 128), (1000, 16, 16, "row", 64),
+    (37, 16, 8, "full", 64), (16384, 8, 8, "row", 128), (37, 24, 12, "row", 32),
+    (1000, 48, 48, "row", 32), (37, 48, 32, "full", 64), (37, 40, 32, "row", 32),
+    (1000, 36, 36, "full", 64), (1000, 60, 60, "row", 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,din,dout,t_kind,tile_rows", TILE_CASES)
+def test_cuda_kernel_every_tile_height(rows, din, dout, t_kind, tile_rows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = to_torch(block_inputs(rows, din, dout, t_kind, seed=rows + din + dout),
+                    device="cuda")
+    out = fused_residual_block(*args, tile_rows=tile_rows)
+    torch.cuda.synchronize()
+    info = resblock.last_launch()
+    assert info["variant"] == resblock.resblock_variant(din, dout)
+    assert info["tile_rows"] == tile_rows
+    assert info["smem_bytes"] == resblock.resblock_smem_bytes(din, dout, din != dout, tile_rows)
+    assert info["grid"] == resblock.resblock_grid(din, dout, din != dout, rows, tile_rows,
+                                                  resblock._sm_count(0))
+    # f32, TF32 off, differing only in summation order over <= 512 terms.
+    torch.testing.assert_close(out, resblock_reference(*args), rtol=0, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
@@ -86,6 +130,13 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     bad = list(args)
     bad[0] = args[0].double()
     with pytest.raises(TypeError, match="float32"):
+        fused_residual_block(*bad)
+    with pytest.raises(ValueError, match="tile_rows"):
+        fused_residual_block(*args, tile_rows=32)      # 16 -> 8 runs at 64 rows
+    bad = list(args)
+    bad[2] = torch.empty(37 * 8 + 1, device="cuda")[1:].view(37, 8)   # c_proj off 16 bytes
+    bad[2].copy_(args[2])
+    with pytest.raises(ValueError, match="aligned"):
         fused_residual_block(*bad)
 
 
