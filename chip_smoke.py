@@ -16,7 +16,16 @@ their answers:
   forward in bfloat16;
 * NU (``ckpts/ddpm_nu_3u_aug32_s8c``, task ``nu_direct``, DDIM-3, omega
   0.125) through ``serve.Solver`` with the ``mega`` backend at B = 524,288,
-  and held to the JAX package's answer on the same inputs.
+  and held to the JAX package's answer on the same inputs;
+* the production row as ``bench.py:_production_row`` runs it: that NU
+  DDIM-3 with the params and the conditions in bfloat16, through ``mega``
+  (a bfloat16 copy of the net: bfloat16 in, bfloat16 out) and ``plain``
+  bfloat16 (cuBLAS) in turns, held to the JAX package's bfloat16 answer;
+  and MSR-3c through ``cfg_sample(compute_dtype=bfloat16)`` on ``plain``;
+* the Solver's serving surface: one CUDA graph per bucket on ``fused`` and
+  ``mega`` (eager, graph, graph, eager; replays equal to eager bit for bit,
+  launches counted per replay), a bucket of 1,024 holding 1,000 real rows
+  against an unbucketed solve, and best-of-4 with an omega mixture.
 
 The residual-block kernel is held to its plain version at every block
 shape of the MSR-3c forward (16,384 rows) and at the two widest shapes of
@@ -73,6 +82,11 @@ P256 = dict(input_dim=80, proj_dim=256, cond_dim=81, dims=(256, 128, 64, 32), n_
 # flax forward, nu_direct decode), computed on the CPU by
 # tests/test_torch_nu.py::test_nu_vs_jax_constant, which holds this number.
 NU_JAX_MEAN_RATE = 0.00042744530946947634
+# The same in bf16, as bench.py's production row runs it (params, conditions
+# and y_T cast to bf16, no compute_dtype; y0 decoded in float32), computed
+# by tests/test_torch_bf16.py::test_nu_bf16_vs_jax_constant.
+NU_JAX_BF16_MEAN_RATE = 0.0004274172824807465
+MSR_MIX = [150.0, 500.0, 2000.0, 5000.0]   # best-of-4 omega mixture
 
 
 def emit(phase: str, **fields) -> None:
@@ -194,6 +208,7 @@ def main() -> int:
     from diffsg_tpu_torch.ops.resblock import (fused_residual_block, resblock_params_tuple,
                                                resblock_reference)
     from diffsg_tpu_torch.serve import Solver
+    import copy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -340,13 +355,21 @@ def main() -> int:
                                                                      mask, cd), reps, replays)
             call_ms = cuda_ms(lambda: mega.unet_forward_mega(net_model, y, t, cond, mask, cd,
                                                              packed), reps=10 if big else 20)
+            # The plain bf16 backend (cuBLAS on a bf16 copy of the net): the
+            # counterpart of JAX's xla_bf16, not a library call of this function.
+            plain_bf16_ms = None
+            if cd is not None:
+                plain_bf16 = unet_apply_fn(net_model, "plain", compute_dtype=cd)
+                plain_bf16_ms = graph_ms(lambda: plain_bf16(y, t, cond, mask), reps, replays)
+                del plain_bf16
             del ref, out, diff
         bound_ms, bound_by = mega_bound(packed, rows)
         per_row, once, nbytes = mega_work(packed, rows)
         row = {"net": net, "dtype": str(dtype).replace("torch.", ""), "rows": rows,
                "max_abs_err": err, "tol": tol, "mean_abs_err": mean_err, "mean_tol": mean_tol,
                "out_max_abs": scale, "kernel_ms": k_ms, "tile_ms": tile_ms,
-               "wrapper_ms": w_ms, "call_ms": call_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+               "wrapper_ms": w_ms, "call_ms": call_ms, "plain_ms": p_ms,
+               "plain_bf16_ms": plain_bf16_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "of_bound": bound_ms / k_ms, "library_ms": None,
                "macs_per_row": per_row, "batch1_macs": once, "bytes": nbytes, **launch}
         mega_rows.append(row)
@@ -458,10 +481,10 @@ def main() -> int:
     cond_msr = torch.as_tensor(X, device=dev)
 
     @torch.inference_mode()
-    def solve_bf16(seed):
+    def solve_bf16(seed, apply_fn=bf16_apply):
         gen = torch.Generator(device=dev).manual_seed(seed)
         flat = torch.randn((SERVE_B, solver.sched.T + 1, 3), generator=gen, device=dev)
-        y0 = cfg_sample(bf16_apply, solver.sched, cond_msr, solver.task.default_omega, 3,
+        y0 = cfg_sample(apply_fn, solver.sched, cond_msr, solver.task.default_omega, 3,
                         init_noise=flat[:, 0], step_noise=flat[:, 1:].transpose(0, 1),
                         compute_dtype=torch.bfloat16)
         return solver.task.decode(y0, cfg).cpu().numpy()
@@ -475,6 +498,7 @@ def main() -> int:
         check(r["ratio"] >= 0.99, f"bf16 mean waterfilling ratio {r['ratio']} < 0.99")
         check(abs(r["ratio"] - fr["ratio"]) <= 1e-3,
               f"seed {r['seed']}: bf16 ratio {r['ratio']} vs f32 mega {fr['ratio']}")
+    bf16_ratios = [r["ratio"] for r in bf16_reqs]
     emit("serve_msr_mega_bf16", B=SERVE_B, T=solver.sched.T, omega=solver.task.default_omega,
          launches=n_mega, requests=public(bf16_reqs, "ratio"),
          solutions_per_s=rate_per_s(bf16_reqs, SERVE_B),
@@ -547,6 +571,186 @@ def main() -> int:
     check(rel <= 1e-3, f"NU mean rate {rate} vs the JAX package's {NU_JAX_MEAN_RATE}")
     emit("nu_vs_jax", B=4096, mean_rate=rate, jax_mean_rate=NU_JAX_MEAN_RATE, rel_diff=rel)
 
+    # -- serve_nu_bf16: the production row, bench.py:_production_row ------------
+    nu_bf16_model = copy.deepcopy(nu_model).to(torch.bfloat16)
+    nu_bf16_apply = {"mega": unet_apply_fn(nu_bf16_model, "mega"),
+                     "plain": unet_apply_fn(nu_model, "plain", compute_dtype=torch.bfloat16)}
+    cond_nu_bf16 = torch.tensor(XN, device=dev).to(torch.bfloat16)
+
+    def production_y0(backend, cond, seed=None, init=None):
+        if init is None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            init = torch.randn((cond.shape[0], 5), generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+        with torch.inference_mode():
+            y0 = ddim_sample(nu_bf16_apply[backend], nu_solver.sched, cond, NU_OMEGA, 5,
+                             n_steps=NU_STEPS, init_noise=init)
+        check(y0.dtype == torch.bfloat16, f"{backend} bf16 DDIM state is {y0.dtype}")
+        return y0
+
+    def production_solve(backend):
+        def solve(seed):
+            y0 = production_y0(backend, cond_nu_bf16, seed)
+            return nu_solver.task.decode(y0.float(), ncfg).cpu().numpy()
+        return solve
+
+    bf16_runs = {"mega": [], "plain": []}
+    bf16_counts = {"mega": 0, "plain": 0}
+    for turn in ("mega", "plain", "plain", "mega"):
+        seeds = range(2) if not bf16_runs[turn] else range(2, 4)
+        reqs, n_fused, n_mega = serve(production_solve(turn), seeds)
+        want = 2 * NU_STEPS if turn == "mega" else 0
+        check(n_mega == want and n_fused == 0,
+              f"NU bf16 {turn}: {want} mega launches over 2 requests, counted {n_mega} "
+              f"and {n_fused} resblock")
+        bf16_counts[turn] += n_mega
+        for r in reqs:
+            r["rate"] = nu_score(r["P"])
+        bf16_runs[turn] += reqs
+    for m, pl in zip(bf16_runs["mega"], bf16_runs["plain"]):
+        rel = abs(m["rate"] - pl["rate"]) / pl["rate"]
+        check(rel <= 1e-3, f"NU bf16 seed {m['seed']}: mega rate {m['rate']} vs plain "
+                           f"{pl['rate']}")
+    serve_nu_bf16_launches = bf16_counts["mega"]
+    # The JAX package's bf16 answer on the nu_vs_jax inputs.
+    jax_rates = {}
+    zero_counts()
+    for backend in ("mega", "plain"):
+        y0 = production_y0(backend, torch.tensor(XJ, device=dev).to(torch.bfloat16),
+                           init=torch.tensor(init, device=dev).to(torch.bfloat16))
+        dec = nu_solver.task.decode(y0.float(), ncfg)
+        jax_rates[backend] = float(nu_rate(dec, torch.tensor(
+            nu_solver.task.unnormalize_x(XJ, ncfg), dtype=torch.float32, device=dev)).mean())
+        rel = abs(jax_rates[backend] - NU_JAX_BF16_MEAN_RATE) / NU_JAX_BF16_MEAN_RATE
+        check(rel <= 1e-3, f"NU bf16 {backend} mean rate {jax_rates[backend]} vs the JAX "
+                           f"package's {NU_JAX_BF16_MEAN_RATE}")
+    check(mega.LAUNCHES == NU_STEPS, f"nu bf16 vs jax: {NU_STEPS} mega launches")
+    emit("serve_nu_bf16", B=NU_B, T=nu_solver.sched.T, steps=NU_STEPS, omega=NU_OMEGA,
+         launches=serve_nu_bf16_launches,
+         requests={k: public(v, "rate") for k, v in bf16_runs.items()},
+         mega_solutions_per_s=rate_per_s(bf16_runs["mega"], NU_B),
+         plain_solutions_per_s=rate_per_s(bf16_runs["plain"], NU_B),
+         jax_bf16_mean_rate=NU_JAX_BF16_MEAN_RATE, vs_jax_mean_rate=jax_rates,
+         vs_jax_rel_diff={k: abs(v - NU_JAX_BF16_MEAN_RATE) / NU_JAX_BF16_MEAN_RATE
+                          for k, v in jax_rates.items()})
+    del bf16_runs, cond_nu_bf16
+
+    # -- serve_msr_plain_bf16: the cuBLAS bf16 forward on MSR-3c -----------------
+    plain_bf16_apply = unet_apply_fn(model, "plain", compute_dtype=torch.bfloat16)
+    plain_bf16_reqs, n_fused, n_mega = serve(lambda s: solve_bf16(s, plain_bf16_apply), range(2))
+    check(n_fused == 0 and n_mega == 0, "the plain bf16 backend launches no kernel")
+    for r, mr in zip(plain_bf16_reqs, bf16_ratios):
+        r["ratio"] = score(r["P"])
+        check(r["ratio"] >= 0.99, f"plain bf16 mean waterfilling ratio {r['ratio']} < 0.99")
+        check(abs(r["ratio"] - mr) <= 1e-3,
+              f"seed {r['seed']}: plain bf16 ratio {r['ratio']} vs mega bf16 {mr}")
+    emit("serve_msr_plain_bf16", B=SERVE_B, T=solver.sched.T, omega=solver.task.default_omega,
+         requests=public(plain_bf16_reqs, "ratio"),
+         solutions_per_s=rate_per_s(plain_bf16_reqs, SERVE_B), mega_bf16_ratios=bf16_ratios)
+    del plain_bf16_reqs, plain_bf16_apply
+
+    # -- serve_graph: one CUDA graph per bucket, against the same program eagerly -
+    graph_rows = {}
+    serve_graph_launches = {"fused": 0, "mega": 0}
+    for backend, per_req in (("fused", 2700), ("mega", 100)):
+        eager = Solver(solver.task, model, solver.sched, cfg, backend=backend,
+                       buckets=(SERVE_B,), graphs=False)
+        graphed = Solver(solver.task, model, solver.sched, cfg, backend=backend,
+                         buckets=(SERVE_B,))
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            graphed.warmup()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        check(len(graphed._graphs) == 1, f"{backend}: one graph captured")
+        captured = next(iter(graphed._graphs.values())).launches
+        check(captured == ((per_req, 0) if backend == "fused" else (0, per_req)),
+              f"{backend}: the graph captured {captured} launches, not {per_req}")
+        runs = []
+        for mode, s_ in (("eager", eager), ("graph", graphed), ("graph", graphed),
+                         ("eager", eager)):
+            reqs, n_fused, n_mega = serve(lambda seed: s_.solve(X, seed=seed), range(2))
+            counted = n_fused if backend == "fused" else n_mega
+            other = n_mega if backend == "fused" else n_fused
+            check(counted == 2 * per_req and other == 0,
+                  f"serve_graph {backend} {mode}: {per_req} launches per request, counted "
+                  f"{counted} and {other}")
+            serve_graph_launches[backend] += counted
+            runs.append((mode, reqs))
+        ref = {r["seed"]: r["P"] for r in runs[0][1]}
+        for mode, reqs in runs:
+            for r in reqs:
+                check(np.array_equal(r["P"], ref[r["seed"]]),
+                      f"serve_graph {backend}: {mode} seed {r['seed']} differs from eager")
+        ratio = score(ref[0])
+        check(ratio >= 0.99, f"serve_graph {backend} ratio {ratio}")
+        graph_rows[backend] = {
+            "capture_s": capture_s, "ratio": ratio,
+            "runs": [{"mode": m, "solutions_per_s": rate_per_s(reqs, SERVE_B),
+                      "request_s": [r["s"] for r in reqs]} for m, reqs in runs]}
+        del eager, graphed, runs, ref
+        torch.cuda.empty_cache()
+    emit("serve_graph", B=SERVE_B, bucket=SERVE_B, T=solver.sched.T,
+         omega=solver.task.default_omega, launches=serve_graph_launches, **graph_rows)
+
+    # -- serve_best_of: best-of-4 with an omega mixture, mega f32 ----------------
+    best_reqs, n_fused, n_mega = serve(
+        lambda s: mega_solver.solve(X, omega=MSR_MIX, best_of=4, seed=s), [0, 0])
+    check(n_mega == 2 * 4 * 100 and n_fused == 0,
+          f"best-of-4: 4 x 100 mega launches per request, counted {n_mega} and {n_fused}")
+    serve_best_of_launches = n_mega
+    check(np.array_equal(best_reqs[0]["P"], best_reqs[1]["P"]), "best-of-4 is deterministic")
+    with torch.inference_mode():
+        single = mega_solver.solve(X, omega=MSR_MIX[0], seed=0)
+        rate_best = solver.task.objective(torch.tensor(best_reqs[0]["P"], device=dev), g, cfg)
+        rate_one = solver.task.objective(torch.tensor(single, device=dev), g, cfg)
+    worse = int((rate_best < rate_one).sum())
+    check(worse == 0, f"best-of-4 below its candidate 0 on {worse} rows")
+    best_ratio, single_ratio = score(best_reqs[0]["P"]), score(single)
+    emit("serve_best_of", B=SERVE_B, T=solver.sched.T, omega=MSR_MIX, best_of=4,
+         launches=serve_best_of_launches, ratio=best_ratio, single_ratio_omega150=single_ratio,
+         rows_improved=int((rate_best > rate_one).sum()),
+         solutions_per_s=SERVE_B / best_reqs[1]["s"], request_s=[r["s"] for r in best_reqs])
+    del best_reqs
+
+    # -- serve_buckets: 1,000 real rows in a bucket of 1,024 vs unbucketed -------
+    # Elementwise at JAX's bucket tolerance (rtol 1e-3, atol 1e-2; on MSR the
+    # atol scaled by W / 400) where no guidance amplifies the statistics'
+    # last bits: NU (DDIM-3, omega 0.125) and MSR at omega 0. At omega 500 a
+    # row moves by up to 0.22 W on the CPU (ROADMAP Queue 3, item 3), so MSR
+    # there is held by its mean waterfilling ratio, within 1e-3.
+    bucket_rows = {}
+    XB = rng.uniform(0, 1, (1000, 3)).astype(np.float32)
+    gb = torch.tensor(solver.task.unnormalize_x(XB, cfg), dtype=torch.float32, device=dev)
+    opt_b = msr_sum_rate(waterfilling(gb, W), gb)
+    cases = [("nu", nu_solver, XN[:1000], {"omega": NU_OMEGA, "sampler": "ddim",
+                                            "n_steps": NU_STEPS}, 1.0),
+             ("msr_omega0", solver, XB, {"omega": 0.0}, W / 400.0),
+             ("msr_omega500", solver, XB, {}, None)]
+    for name, base, Xb, kw, atol_scale in cases:
+        bucketed = Solver(base.task, base.model, base.sched, base.config, backend="mega",
+                          buckets=(1024,))
+        unbucketed = Solver(base.task, base.model, base.sched, base.config, backend="mega")
+        a, b_ = bucketed.solve(Xb, seed=3, **kw), unbucketed.solve(Xb, seed=3, **kw)
+        row = {"max_abs_diff": float(np.abs(a - b_).max()), "graphs": len(bucketed._graphs)}
+        if atol_scale is None:
+            row["ratios"] = [float((base.task.objective(torch.tensor(P, device=dev), gb, cfg)
+                                    / opt_b).mean()) for P in (a, b_)]
+        else:
+            row["excess"] = float(np.max(np.abs(a - b_) - (1e-2 * atol_scale
+                                                           + 1e-3 * np.abs(b_))))
+        bucket_rows[name] = row
+        del bucketed, unbucketed
+    emit("serve_buckets", rows=1000, bucket=1024, **bucket_rows)
+    for name, row in bucket_rows.items():
+        check(row["graphs"] == 1, f"serve_buckets {name}: one graph for bucket 1,024")
+        if "excess" in row:
+            check(row["excess"] <= 0, f"serve_buckets {name}: bucketed vs unbucketed beyond "
+                                      f"rtol 1e-3, atol 1e-2 (x W/400 on MSR): {row}")
+        else:
+            check(abs(row["ratios"][0] - row["ratios"][1]) <= 1e-3,
+                  f"serve_buckets {name}: mean ratios {row['ratios']}")
+
     # -- kernels: one line per kernel ---------------------------------------------
     main_shapes = [r for r in per_shape if r["per_forward"]]
     bounds = {}
@@ -555,14 +759,14 @@ def main() -> int:
     msr_f32 = mega_rows[0]
     print(json.dumps({"kernels": [
         {"name": "fused_residual_block", "route": "cuda", "source": RESBLOCK_SOURCE,
-         "replaces": RESBLOCK_REPLACES, "launches": 2 * 2700,
+         "replaces": RESBLOCK_REPLACES, "launches": 2 * 2700 + serve_graph_launches["fused"],
          "max_abs_err": max(r["max_abs_err"] for r in per_shape),
          "ms": kernel_ms_per_fwd,
          "plain_ms": sum(r["plain_ms"] * r["per_forward"] for r in main_shapes),
          "bound_ms": sum(bounds.values()), "bound_by": max(bounds, key=bounds.get),
          "library_ms": None,
          "per": f"one MSR-3c forward: the 27 launches at {ROWS} rows; launches over the "
-                f"2 fused serving requests",
+                f"2 fused serving requests and serve_graph's 8 fused requests (4 replayed)",
          "cases": [{k: r[k] for k in ("net", "in", "out", "shortcut", "rows", "per_forward",
                                       "variant", "tile_rows", "grid", "max_abs_err",
                                       "kernel_ms", "tile_ms", "plain_ms", "bound_ms",
@@ -570,15 +774,20 @@ def main() -> int:
                    for r in per_shape]},
         {"name": "unet_forward_mega", "route": "cuda", "source": MEGA_SOURCE,
          "replaces": MEGA_REPLACES,
-         "launches": serve_msr_mega_launches + serve_msr_bf16_launches + serve_nu_launches,
+         "launches": (serve_msr_mega_launches + serve_msr_bf16_launches + serve_nu_launches
+                      + serve_nu_bf16_launches + serve_graph_launches["mega"]
+                      + serve_best_of_launches),
          "max_abs_err": max(r["max_abs_err"] for r in mega_rows),
          "ms": msr_f32["kernel_ms"], "plain_ms": msr_f32["plain_ms"],
          "bound_ms": msr_f32["bound_ms"], "bound_by": msr_f32["bound_by"], "library_ms": None,
          "per": f"one MSR-3c float32 forward at {ROWS} rows; launches over serve_msr_mega "
-                f"({serve_msr_mega_launches}), serve_msr_mega_bf16 ({serve_msr_bf16_launches}) "
-                f"and serve_nu ({serve_nu_launches})",
+                f"({serve_msr_mega_launches}), serve_msr_mega_bf16 ({serve_msr_bf16_launches}), "
+                f"serve_nu ({serve_nu_launches}), serve_nu_bf16 ({serve_nu_bf16_launches}), "
+                f"serve_graph ({serve_graph_launches['mega']}) and serve_best_of "
+                f"({serve_best_of_launches})",
          "cases": [{k: r[k] for k in ("net", "dtype", "rows", "tile_rows", "max_abs_err",
-                                      "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+                                      "kernel_ms", "plain_ms", "plain_bf16_ms", "bound_ms",
+                                      "bound_by")}
                    for r in mega_rows]},
     ]}), flush=True)
     print(smi, flush=True)

@@ -5,6 +5,13 @@ the batch-1 time of :func:`diffusion.ddpm.cfg_sample`; the early-step batch
 re-standardization runs on the leading steps of the respaced trajectory,
 ``clamp(n // 5, 1, 4)`` of them unless ``renorm_steps`` says otherwise.
 ``eta = 0`` is deterministic given ``init_noise``.
+
+The sampler runs in ``cond``'s type, as the JAX one does: with bfloat16
+conditions (and a bfloat16 ``init_noise`` and denoiser) the state, the
+coefficients, the time and the re-standardization are all bfloat16, as in
+the JAX package's production row (``bench.py:_production_row``). It moves
+no data from the host inside its loop, so it can be captured in a CUDA
+graph.
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .ddpm import ApplyFn, cfg_net, masked_mean_var
+from .ddpm import ApplyFn, Omega, cfg_net, masked_mean_var
 from .schedule import Schedule
 
 
@@ -28,7 +35,7 @@ def ddim_sample(
     apply_fn: ApplyFn,
     sched: Schedule,
     cond: torch.Tensor,
-    omega: float,
+    omega: Omega,
     data_dim: int,
     generator: Optional[torch.Generator] = None,
     n_steps: Optional[int] = None,
@@ -38,6 +45,7 @@ def ddim_sample(
     valid_mask: Optional[torch.Tensor] = None,
     parameterization: str = "eps",
     skip_uncond: bool = False,
+    step_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """DDIM reverse sampler; returns ``y_0`` (B, data_dim).
 
@@ -51,6 +59,8 @@ def ddim_sample(
       init_noise: optional (B, D) y_T.
       renorm_steps: leading steps with batch re-standardization (default
         ``clamp(n // 5, 1, 4)`` for n respaced steps).
+      step_noise: optional (n, B, D) per-step noise for ``eta > 0``, entry i
+        at the i-th respaced step; drawn from ``generator`` when not given.
     """
     if parameterization not in ("eps", "x0", "v"):
         raise ValueError(f"unknown parameterization {parameterization!r}")
@@ -60,15 +70,17 @@ def ddim_sample(
     n = len(steps)
     if renorm_steps is None:
         renorm_steps = max(1, min(4, n // 5))
+    # alpha_bar at each step and at its successor in the sub-sequence,
+    # indexed by Python ints: no index tensor goes to the device.
     abar = sched.alphas_cumprod
-    a_t = abar[torch.as_tensor(steps.copy(), device=dev)].to(dtype)
-    a_prev = torch.cat([abar[torch.as_tensor(steps[1:].copy(), device=dev, dtype=torch.long)],
-                        torch.ones(1, dtype=abar.dtype, device=dev)]).to(dtype)
+    a_t = [abar[int(s)].to(dtype) for s in steps]
+    a_prev = [abar[int(s)].to(dtype) for s in steps[1:]] + [torch.ones((), dtype=dtype,
+                                                                       device=dev)]
 
-    if init_noise is None or eta > 0:
+    if init_noise is None or (eta > 0 and step_noise is None):
         if generator is None:
             raise ValueError("ddim_sample needs a generator when init_noise is not "
-                             "given or eta > 0")
+                             "given, or eta > 0 and step_noise is not given")
     if init_noise is None:
         init_noise = torch.randn((B, data_dim), generator=generator, dtype=dtype, device=dev)
 
@@ -88,8 +100,9 @@ def ddim_sample(
         dir_coeff = torch.sqrt(torch.clamp(1.0 - ap - sigma ** 2, min=0.0))
         y = torch.sqrt(ap) * y0_pred + dir_coeff * eps
         if eta > 0:
-            y = y + sigma * torch.randn((B, data_dim), generator=generator, dtype=dtype,
-                                        device=dev)
+            z = step_noise[i] if step_noise is not None else torch.randn(
+                (B, data_dim), generator=generator, dtype=dtype, device=dev)
+            y = y + sigma * z
         if i < renorm_steps:
             if valid_mask is None:
                 mean, var = y.mean(), y.var()

@@ -15,13 +15,17 @@ numerics are kept:
   valid rows when ``valid_mask`` is given.
 
 ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the denoiser forward in that
-type and keeps the CFG combine and the reverse step in float32. Not ported
-yet: ``record_trace`` and ``guidance_fn``.
+type and keeps the CFG combine and the reverse step in float32.
+``record_trace`` returns the per-step trajectory beside ``y_0``. Not ported
+yet: ``guidance_fn``.
+
+``omega`` may be a Python number or a 0-d tensor on ``cond``'s device: a
+tensor keeps one captured CUDA graph valid for every guidance scale.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -29,6 +33,16 @@ from .schedule import Schedule
 
 # apply_fn(y_t, t_norm, cond, cond_mask) -> model output (B, D)
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+Omega = Union[float, torch.Tensor]
+
+
+class SampleTrace(NamedTuple):
+    """The per-step trajectory of :func:`cfg_sample`, each (T, B, D):
+    ``ys[s]`` the state and ``eps[s]`` the CFG-combined epsilon after reverse
+    step ``s`` (s = 0 is the first, t = T-1)."""
+
+    ys: torch.Tensor
+    eps: torch.Tensor
 
 
 def masked_mean_var(y: torch.Tensor, valid_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -40,7 +54,7 @@ def masked_mean_var(y: torch.Tensor, valid_mask: torch.Tensor) -> Tuple[torch.Te
     return mean, var
 
 
-def cfg_net(apply_fn: ApplyFn, cond: torch.Tensor, omega: float, skip_uncond: bool,
+def cfg_net(apply_fn: ApplyFn, cond: torch.Tensor, omega: Omega, skip_uncond: bool,
             compute_dtype: Optional[torch.dtype] = None
             ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``net_cfg(y_t, t_norm)``: the CFG-combined denoiser output.
@@ -66,9 +80,11 @@ def cfg_net(apply_fn: ApplyFn, cond: torch.Tensor, omega: float, skip_uncond: bo
     mask2 = torch.cat([torch.zeros((B, 1), dtype=dtype, device=dev),
                        torch.ones((B, 1), dtype=dtype, device=dev)], dim=0)
 
+    w_cond = 1.0 + omega
+
     def net_cfg(y_t, t_norm):
         eps2 = forward(torch.cat([y_t, y_t], dim=0), t_norm, cond2, mask2)
-        return (1.0 + omega) * eps2[B:] - omega * eps2[:B]
+        return w_cond * eps2[B:] - omega * eps2[:B]
     return net_cfg
 
 
@@ -96,7 +112,7 @@ def cfg_sample(
     apply_fn: ApplyFn,
     sched: Schedule,
     cond: torch.Tensor,
-    omega: float,
+    omega: Omega,
     data_dim: int,
     generator: Optional[torch.Generator] = None,
     init_noise: Optional[torch.Tensor] = None,
@@ -106,8 +122,10 @@ def cfg_sample(
     parameterization: str = "eps",
     skip_uncond: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
-) -> torch.Tensor:
-    """Batched CFG reverse sampler; returns ``y_0`` (B, data_dim).
+    record_trace: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, SampleTrace]]:
+    """Batched CFG reverse sampler; returns ``y_0`` (B, data_dim), or
+    ``(y_0, SampleTrace)`` with ``record_trace``.
 
     Args:
       apply_fn: the denoiser, ``apply_fn(y_t, t_norm, cond, cond_mask)``.
@@ -129,6 +147,8 @@ def cfg_sample(
         CFG combine and the reverse step stay float32. Pair it with an
         ``apply_fn`` built for that type (``unet_apply_fn(model, "mega",
         compute_dtype=...)``).
+      record_trace: also return the state and the CFG-combined epsilon
+        after every step (``SampleTrace``, each (T, B, D)).
     """
     if parameterization not in ("eps", "x0", "v"):
         raise ValueError(f"unknown parameterization {parameterization!r}")
@@ -146,6 +166,7 @@ def cfg_sample(
     net_cfg = cfg_net(apply_fn, cond, omega, skip_uncond, compute_dtype)
 
     y = init_noise
+    ys, epss = [], []
     for s, i in enumerate(range(T - 1, -1, -1)):
         t_norm = torch.full((1,), i, dtype=dtype, device=dev) / T
         eps = net_cfg(y, t_norm)
@@ -155,4 +176,9 @@ def cfg_sample(
             eps = sched.sqrt_one_minus_alphas_cumprod[i] * y + sched.sqrt_alphas_cumprod[i] * eps
         z = step_noise[s] if i > 1 else None
         y = _reverse_step(sched, y, i, eps, z, T, renorm_steps, valid_mask)
+        if record_trace:
+            ys.append(y)
+            epss.append(eps)
+    if record_trace:
+        return y, SampleTrace(torch.stack(ys), torch.stack(epss))
     return y

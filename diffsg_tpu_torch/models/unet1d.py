@@ -64,13 +64,16 @@ class TimeEmbedding(nn.Module):
         self.lin1 = Dense(in_dim // 4, in_dim)
         self.lin2 = Dense(in_dim, in_dim)
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
+    def sinusoid(self, t: torch.Tensor) -> torch.Tensor:
+        """(B, in_dim // 4) sin and cos features of ``t``, in ``t``'s type."""
         half = self.in_dim // 8
         freq = torch.exp(torch.arange(half, dtype=t.dtype, device=t.device)
                          * -(math.log(10_000) / (half - 1)))
         emb = t[:, None] * freq[None, :]
-        emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
-        return self.lin2(swish(self.lin1(emb)))
+        return torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        return self.lin2(swish(self.lin1(self.sinusoid(t))))
 
 
 class ResidualBlock(nn.Module):

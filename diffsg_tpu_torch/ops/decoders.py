@@ -5,13 +5,23 @@ and ``nu_decode`` normalize by the min and max of the **whole batch
 tensor**, not per row, as the published method does; ``valid_mask`` (B, 1)
 restricts those reductions to real rows. ``nu_direct_decode`` is strictly
 per row.
+
+Per-column constants (the area, ``y_shift``) are applied as Python numbers,
+one column at a time, so that no decoder copies data from the host: a
+decode can then be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
+
+
+def _by_column(Y: torch.Tensor, fn, values: Sequence[float]) -> torch.Tensor:
+    """``fn(Y[:, j], values[j])`` for every column j, as one (B, len) tensor."""
+    return torch.cat([fn(Y[:, j:j + 1], float(v)) for j, v in enumerate(values)], dim=1)
 
 
 def masked_min_max(Y: torch.Tensor, valid_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -54,10 +64,11 @@ def nu_direct_decode(Y: torch.Tensor, width: float, height: float, P_sum: float,
     were ``y_scale * (labels - y_shift)``, ``y_shift`` scalar or (D,)), clip
     the UAV position into the area and project the power split onto the
     simplex of sum ``P_sum``."""
-    shift = torch.as_tensor(y_shift, dtype=Y.dtype, device=Y.device)
-    yd = Y / y_scale + shift
-    area = torch.tensor([width, height], dtype=Y.dtype, device=Y.device)[None, :]
-    xy = torch.clamp(yd[:, :2], 0.0, 1.0) * area
+    if isinstance(y_shift, torch.Tensor):
+        y_shift = y_shift.tolist()
+    shift = np.broadcast_to(np.asarray(y_shift, np.float32), (Y.shape[1],))
+    yd = _by_column(Y / y_scale, torch.add, shift)
+    xy = _by_column(torch.clamp(yd[:, :2], 0.0, 1.0), torch.mul, (width, height))
     P = msr_simplex_project(yd[:, 2:], 1.0) * P_sum
     return torch.cat([xy, P], dim=1)
 
@@ -71,7 +82,6 @@ def nu_decode(Y: torch.Tensor, width: float, height: float, P_sum: float,
         mn, mx = xy.min(), xy.max()
     else:
         mn, mx = masked_min_max(xy, valid_mask)
-    area = torch.tensor([width, height], dtype=Y.dtype, device=Y.device)[None, :]
-    xy = (xy - mn) / (mx - mn) * area
+    xy = _by_column((xy - mn) / (mx - mn), torch.mul, (width, height))
     P = torch.softmax(Y[:, 2:], dim=1) * P_sum
     return torch.cat([xy, P], dim=1)

@@ -10,11 +10,17 @@ Linear. As in the JAX package, the time MLP runs outside at batch 1 and its
 swish ``st`` goes in (each block's time projection ``st @ W_t + b_t`` is
 computed inside), and ``sc = swish(cond * mask)`` is computed outside.
 
-``compute_dtype`` (``None`` for float32, or ``torch.bfloat16``) sets the type
-of the weights and activations, with the JAX kernel's rounding points: LN
-statistics, swish and every product's accumulation and bias add in float32,
-each result rounded to the compute type; residual adds and the concat in
-the compute type. The output is float32 either way.
+The compute type follows the JAX kernel's rule: ``compute_dtype`` when it
+is given, else the type of ``y``. Activations are rounded to it with the
+JAX kernel's rounding points: LN statistics, swish and every product's
+accumulation and bias add in float32, each result rounded to the compute
+type; residual adds and the concat in the compute type. The weights are
+cast to ``compute_dtype`` when it is given and otherwise read in the
+model's own type (a bfloat16 copy of the model for bfloat16 weights). The
+output is float32 when ``compute_dtype`` is given, else of the compute
+type: bfloat16 weights and inputs give bfloat16 out, as
+``pallas_mega.py`` returns. The kernel itself always writes float32 (each
+value already rounded to the compute type) and the wrapper casts.
 
 ``unet_forward_mega`` takes the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; there is no fallback
@@ -47,6 +53,10 @@ _LN_EPS = 1e-5
 
 #: Number of kernel launches in this process; only the CUDA path counts.
 LAUNCHES = 0
+#: Launches recorded into a CUDA graph under capture: the kernel does not
+#: run then, so they are not in ``LAUNCHES``; whoever replays the graph adds
+#: them there per replay (``serve.Solver``).
+CAPTURED = 0
 
 # Layer kinds of the table.
 FEATURE_PROJ, BLOCK, RESAMPLE, HEAD = 0, 1, 2, 3
@@ -148,12 +158,13 @@ def _check_model(model: "UNet1D") -> None:
 def pack_params(model: "UNet1D", dtype: Optional[torch.dtype] = None,
                 device: Optional[torch.device] = None) -> MegaParams:
     """Pack ``model``'s weights (all but the time MLP, which runs outside)
-    into one buffer of ``dtype`` (float32 when None) on ``device`` (the
-    model's when None), and build the layer table from ``unet_topology``.
+    into one buffer of ``dtype`` (the model's weight type when None) on
+    ``device`` (the model's when None), and build the layer table from
+    ``unet_topology``.
     Raises ValueError, with the footprint, for a net too wide for any tile
     height of the kernel."""
     _check_model(model)
-    dtype = torch.float32 if dtype is None else dtype
+    dtype = model.feature_proj.kernel.dtype if dtype is None else dtype
     if dtype not in _DTYPES:
         raise TypeError(f"the mega kernel computes in float32 or bfloat16, not {dtype}")
     if device is None:
@@ -267,26 +278,29 @@ def _swish(x: torch.Tensor) -> torch.Tensor:
 
 
 def _time_features(model: "UNet1D", t: torch.Tensor) -> torch.Tensor:
-    """The time MLP at the batch of ``t``. The sinusoid is formed in
-    ``t``'s type (bfloat16 when the sampler casts t), the MLP in float32
-    with the module's weights, as the JAX package's ``_time_features``."""
+    """The time MLP at the batch of ``t``, as the JAX package's
+    ``_time_features``: the sinusoid in ``t``'s type (bfloat16 when the
+    sampler casts t), the MLP in the promotion of that type and the module's
+    weight type (float32 with float32 weights; bfloat16 with a bfloat16 copy
+    of the model and bfloat16 t)."""
     te = model.time_emb
-    half = te.in_dim // 8
-    freq = torch.exp(torch.arange(half, dtype=t.dtype, device=t.device)
-                     * -(math.log(10_000) / (half - 1)))
-    emb = t[:, None] * freq[None, :]
-    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1).float()
-    return te.lin2(_swish(te.lin1(emb)))
+    emb = te.sinusoid(t)
+    dt = torch.promote_types(emb.dtype, te.lin1.kernel.dtype)
+
+    def dense(lin, x):
+        return torch.matmul(x, lin.kernel.to(dt)) + lin.bias.to(dt)
+
+    return dense(te.lin2, _swish(dense(te.lin1, emb.to(dt))))
 
 
 def mega_inputs(model: "UNet1D", y: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
                 cond_mask: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(y, sc, st) in the compute type, as the kernel reads them:
-    ``sc = swish(cond * mask)`` (B, C) and ``st = swish(time MLP(t))``
-    (1, 4 * proj). ``t`` must hold exactly one entry: the sampler's
-    batch-1 time."""
-    dtype = torch.float32 if compute_dtype is None else compute_dtype
+    """(y, sc, st) in the compute type (``compute_dtype``, else ``y``'s
+    type), as the kernel reads them: ``sc = swish(cond * mask)`` (B, C) and
+    ``st = swish(time MLP(t))`` (1, 4 * proj). ``t`` must hold exactly one
+    entry: the sampler's batch-1 time."""
+    dtype = y.dtype if compute_dtype is None else compute_dtype
     if dtype not in _DTYPES:
         raise TypeError(f"the mega kernel computes in float32 or bfloat16, not {dtype}")
     if t.numel() != 1:
@@ -306,16 +320,18 @@ def unet_forward_mega_reference(model: "UNet1D", y: torch.Tensor, t: torch.Tenso
                                 cond: torch.Tensor, cond_mask: torch.Tensor,
                                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The whole forward in plain PyTorch, rounded where the kernel rounds.
-    Returns float32 (B, D)."""
+    Returns (B, D) in float32 when ``compute_dtype`` is given, else in the
+    compute type (``y``'s)."""
     _check_model(model)
     y, sc, st = mega_inputs(model, y, t, cond, cond_mask, compute_dtype)
     dt = y.dtype
+    wdt = _weight_dtype(model, compute_dtype)
 
     def rnd(x):                       # round to the compute type, go on in f32
         return x.to(dt).float()
 
     def w(p):
-        return rnd(p.detach().float())
+        return p.detach().to(wdt).float()
 
     def ln(norm, x):
         mean = x.mean(dim=-1, keepdim=True)
@@ -345,7 +361,17 @@ def unet_forward_mega_reference(model: "UNet1D", y: torch.Tensor, t: torch.Tenso
     x = resblock(model.middle.res2, x)
     for kind, m in zip(model.up_kinds, model.up):
         x = dense(m.lin, x) if kind == "resample" else resblock(m.res, torch.cat([x, skips.pop()], 1))
-    return dense(model.final, act(ln(model.norm, x)))
+    return dense(model.final, act(ln(model.norm, x))).to(_out_dtype(dt, compute_dtype))
+
+
+def _weight_dtype(model: "UNet1D", compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The type the weights are read in: ``compute_dtype``, else the model's."""
+    return model.feature_proj.kernel.dtype if compute_dtype is None else compute_dtype
+
+
+def _out_dtype(dtype: torch.dtype, compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """float32 when ``compute_dtype`` is given, else the compute type."""
+    return torch.float32 if compute_dtype is not None else dtype
 
 
 # -- the kernel -------------------------------------------------------------------
@@ -376,11 +402,15 @@ def unet_forward_mega(model: "UNet1D", y: torch.Tensor, t: torch.Tensor, cond: t
                       cond_mask: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
                       packed: Optional[MegaParams] = None) -> torch.Tensor:
     """The whole UNet1D forward: one launch of the CUDA kernel on a CUDA
-    device, the plain version on the CPU. Returns float32 (B, D).
+    device, the plain version on the CPU. Returns (B, D), float32 when
+    ``compute_dtype`` is given, else of the compute type (``y``'s).
 
     ``packed`` is ``pack_params(model, compute_dtype)``, packed once by the
     caller (``unet_apply_fn(model, "mega")`` does); without it the weights
-    are packed on every call. Raises on anything the kernel does not take.
+    are packed on every call. The kernel takes weights of the compute type
+    only: with ``y`` in bfloat16, no ``compute_dtype`` and a float32 model
+    (whose weights JAX would read in float32) it raises. Raises on anything
+    the kernel does not take.
     """
     if y.device.type == "cpu":
         return unet_forward_mega_reference(model, y, t, cond, cond_mask, compute_dtype)
@@ -393,10 +423,10 @@ def unet_forward_mega(model: "UNet1D", y: torch.Tensor, t: torch.Tensor, cond: t
             raise ValueError(f"{name} is on {a.device}, y on {dev}")
     ys, sc, st = mega_inputs(model, y, t, cond, cond_mask, compute_dtype)
     if packed is None:
-        packed = pack_params(model, ys.dtype, dev)
+        packed = pack_params(model, _weight_dtype(model, compute_dtype), dev)
     if (packed.input_dim, packed.cond_dim) != (model.input_dim, model.cond_dim):
         raise ValueError("packed weights are of another net")
-    return launch_mega(packed, ys, sc, st)
+    return launch_mega(packed, ys, sc, st).to(_out_dtype(ys.dtype, compute_dtype))
 
 
 def launch_mega(packed: MegaParams, y: torch.Tensor, sc: torch.Tensor, st: torch.Tensor,
@@ -443,8 +473,11 @@ def launch_mega(packed: MegaParams, y: torch.Tensor, sc: torch.Tensor, st: torch
     if err != 0:
         msg = lib.diffsg_cuda_error_string(err).decode()
         raise RuntimeError(f"mega kernel launch failed: {msg} ({err})")
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, CAPTURED
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
     return out
 
 

@@ -1,13 +1,22 @@
 """Serving API: a loaded checkpoint that turns conditions into solutions.
 
-Counterpart of ``diffsg_tpu/serve.py::Solver`` on its single-draw path,
-with the CFG-DDPM and DDIM samplers. Not ported yet: batch buckets, the
-device mesh, best-of-N and refinement.
+Counterpart of ``diffsg_tpu/serve.py`` on one device: ``suggest_buckets``,
+and ``Solver`` with batch buckets and a validity mask, the CFG-DDPM and DDIM
+samplers, best-of-N with omega mixtures, ``warmup`` and ``solve_chunked``.
+Not ported: the device mesh and refinement (``mesh``, ``refine_iters``).
+
+Where JAX compiles one program per bucket, the port captures one CUDA graph
+per bucket and configuration (``warmup``, or the first ``solve`` of a
+configuration) and replays it. Sizes above the largest bucket, Solvers
+without buckets, and the CPU run eagerly; a capture that fails raises.
 
 Example:
     from diffsg_tpu_torch.serve import Solver
-    solver = Solver.from_checkpoint("ckpts/ddpm_msr_3c_T100", task="msr")
+    solver = Solver.from_checkpoint("ckpts/ddpm_msr_3c_T100", task="msr",
+                                    buckets=(1024, 8192))
+    solver.warmup(configs=[{}, {"best_of": 4, "omega": [150, 500, 2000, 5000]}])
     P = solver.solve(X)                  # (B, 3) powers, each row sums to W
+    P = solver.solve(X, omega=[150, 500, 2000, 5000], best_of=4)
 
     nu = Solver.from_checkpoint("ckpts/ddpm_nu_3u_aug32_s8c", task="nu_direct",
                                 backend="mega")
@@ -16,21 +25,72 @@ Example:
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .diffusion.ddim import ddim_sample
+from .diffusion.ddim import ddim_sample, respaced_steps
 from .diffusion.ddpm import cfg_sample
 from .diffusion.schedule import Schedule
 from .models.unet1d import UNet1D
 from .models.unet1d_fused import unet_apply_fn
+from .ops import mega, resblock
 from .tasks import TASKS
-from .tasks.base import Task
+from .tasks.base import Task, select_best
 from .utils.checkpoint import load_checkpoint
 from .utils.params import params_from_jax
+
+
+def suggest_buckets(sizes: Sequence[int], max_buckets: int = 4, align: int = 64,
+                    dp: int = 1) -> List[int]:
+    """Pick batch-size buckets from an observed request-size histogram.
+
+    Upper quantiles of the observed sizes (every request pads up to its
+    bucket), rounded up to ``align`` (and to ``dp``), deduplicated; the
+    largest observed size always gets a bucket.
+
+    >>> suggest_buckets([30, 60, 100, 500, 510, 520], max_buckets=4)
+    [128, 512, 576]
+    """
+    if not sizes:
+        return []
+    a = math.lcm(align, max(1, dp))
+    arr = np.sort(np.asarray(sizes))
+    qs = np.linspace(1.0 / max_buckets, 1.0, max_buckets)
+    return sorted({int(-(-int(np.quantile(arr, q, method="higher")) // a) * a) for q in qs})
+
+
+class _Spec(NamedTuple):
+    """What one program serves: its key among the captured graphs."""
+
+    bucket: int
+    sampler: str
+    n_steps: Optional[int]       # DDIM's respaced steps; None for DDPM
+    candidates: int              # best-of candidates (1: a single draw)
+    skip: bool                   # every omega 0: the conditional half only
+    eta: float
+    renorm_steps: Optional[int]
+
+
+class _Inputs(NamedTuple):
+    """A program's inputs, on the device. A graph keeps one set and the
+    request's data is copied into it."""
+
+    cond: torch.Tensor           # (b, C) loader-normalized conditions
+    cond_unnorm: torch.Tensor    # (b, C) in physical units
+    valid: Optional[torch.Tensor]  # (b, 1) 1.0 real, 0.0 pad; None without buckets
+    noise: torch.Tensor          # (candidates, b, columns, D), row-major
+    omega: torch.Tensor          # (candidates,)
+
+
+class _Graph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: _Inputs
+    out: torch.Tensor
+    launches: Tuple[int, int]    # resblock and mega launches per replay
 
 
 class Solver:
@@ -40,22 +100,44 @@ class Solver:
     the CUDA kernel), "mega" (the whole forward as one launch of the
     whole-network kernel) or "plain"; on the CPU the kernels' plain
     versions run.
+
+    ``buckets``: optional batch sizes. A request of n rows is padded up to
+    the smallest bucket that holds it by repeating its last row, and a
+    (b, 1) validity mask keeps the pad rows out of the sampler's
+    re-standardization and the decoder's batch-global reductions, so a
+    bucketed answer equals an unbucketed one up to float reassociation. On
+    a CUDA device each (bucket, configuration) runs as one captured CUDA
+    graph (``graphs=False`` runs the same program eagerly). Without buckets
+    every size runs eagerly with no mask.
+
+    Noise is drawn from a generator seeded per request, row-major, for the
+    n real rows only; pad rows get zeros. So a real row's noise does not
+    depend on the bucket (``torch.randn`` of (b, ...) is not row-prefix
+    stable).
     """
 
     def __init__(self, task: Task, model: UNet1D, sched: Schedule, config: Dict,
-                 backend: str = "fused"):
+                 backend: str = "fused", buckets: Optional[Sequence[int]] = None,
+                 graphs: bool = True):
         self.task = task
         self.model = model
         self.sched = sched
         self.config = dict(config)
         self.device = sched.betas.device
+        self.buckets = sorted(int(b) for b in buckets) if buckets else None
+        self.graphs = graphs
         self._apply = unet_apply_fn(model, backend)
         self._D = task.data_dim(self.config)
+        self._C = task.cond_dim(self.config)
+        self._param = self.config.get("parameterization", "eps")
+        #: Every program this Solver has run, and the graphs it captured.
+        self.programs: set = set()
+        self._graphs: Dict[_Spec, _Graph] = {}
 
     @classmethod
-    def from_checkpoint(cls, ckpt_dir: str, task: str = "msr",
-                        device: DeviceLike = "cuda", backend: str = "fused",
-                        dataset_config: Optional[Dict] = None) -> "Solver":
+    def from_checkpoint(cls, ckpt_dir: str, task: str = "msr", device: DeviceLike = "cuda",
+                        backend: str = "fused", dataset_config: Optional[Dict] = None,
+                        buckets: Optional[Sequence[int]] = None) -> "Solver":
         """Load a ``diffsg_tpu.npz.v1`` checkpoint onto ``device``."""
         dev = resolve_device(device)
         ck = load_checkpoint(ckpt_dir, device=dev)
@@ -64,42 +146,206 @@ class Solver:
         t = TASKS[task]
         model = t.build_model(config)
         model.load_state_dict(params_from_jax(ck["params"]), strict=True)
-        return cls(t, model.to(dev).eval(), ck["sched"], config, backend)
+        return cls(t, model.to(dev).eval(), ck["sched"], config, backend, buckets)
+
+    @classmethod
+    def from_torch_checkpoint(cls, pt_path: str, task: str, dataset_config: Dict,
+                              device: DeviceLike = "cuda", backend: str = "fused",
+                              buckets: Optional[Sequence[int]] = None) -> "Solver":
+        """Load a reference torch DDPM checkpoint (``.pt``): its live
+        ``model.*`` weights, not the EMA copy."""
+        from .utils.torch_import import ddpm_from_torch
+
+        dev = resolve_device(device)
+        state, _, sched, _ = ddpm_from_torch(pt_path, device=dev)
+        t = TASKS[task]
+        model = t.build_model(dataset_config)
+        model.load_state_dict(state, strict=True)
+        return cls(t, model.to(dev).eval(), sched, dataset_config, backend, buckets)
+
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets or ():
+            if n <= b:
+                return b
+        return n  # larger than the biggest bucket (or no buckets): this size
+
+    def warmup(self, omega=None, sizes: Optional[Sequence[int]] = None, sampler: str = "ddpm",
+               n_steps: Optional[int] = None, best_of: int = 1,
+               configs: Optional[Sequence[Dict]] = None) -> None:
+        """Run (and on a card capture) the program of every bucket (or
+        ``sizes``) for every configuration, through :meth:`solve` itself.
+        ``configs`` is a list of ``solve`` keyword dicts, e.g. ``[{},
+        {"best_of": 4, "omega": [150, 500, 2000, 5000]}, {"sampler": "ddim",
+        "n_steps": 3}]``; without it, the one configuration the other
+        arguments give."""
+        cfgs = list(configs) if configs is not None else [
+            {"omega": omega, "sampler": sampler, "n_steps": n_steps, "best_of": best_of}]
+        for b in (sizes or self.buckets or ()):
+            for cfg in cfgs:
+                self.solve(np.zeros((b, self._C), np.float32), **cfg)
 
     @torch.inference_mode()
-    def solve(self, X: np.ndarray, omega: Optional[float] = None, seed: int = 0,
+    def solve(self, X: np.ndarray, omega=None, best_of: int = 1, seed: int = 0,
               sampler: str = "ddpm", n_steps: Optional[int] = None, eta: float = 0.0,
               renorm_steps: Optional[int] = None) -> np.ndarray:
         """Conditions (B, C), loader-normalized -> decoded solutions (B, D).
 
+        omega: a scalar, or a list of per-candidate guidance scales (a
+          mixture); default the task's.
+        best_of: candidates per row with a scalar omega; a list omega has
+          one candidate per entry. Each candidate is a whole draw, with its
+          own batch-global statistics; the best by ``task.objective`` is
+          kept per row (``select_best``). Candidate k's noise is the k-th
+          draw from the seed's generator, so candidate 0 is the
+          ``best_of=1`` draw.
         sampler: "ddpm" (the ancestral CFG sampler over all T steps) or
           "ddim" (over ``n_steps`` respaced steps, default T).
         eta / renorm_steps: DDIM only: its stochasticity, and the number of
           leading steps with batch re-standardization (default
           ``clamp(n // 5, 1, 4)``).
 
-        The noise comes from a generator seeded with ``seed``. DDPM draws it
-        row-major, (B, T+1, D): column 0 is y_T, columns 1.. the per-step
-        z. DDIM draws y_T (B, D), then its per-step noise when ``eta > 0``.
+        A candidate's noise is drawn row-major: DDPM (n, T+1, D), column 0
+        y_T and columns 1.. the per-step z; DDIM (n, 1, D), or (n, 1+s, D)
+        with its s per-step noises when ``eta > 0``.
         """
+        return self._solve(X, omega, best_of, seed, sampler, n_steps, eta,
+                           renorm_steps).cpu().numpy()
+
+    @torch.inference_mode()
+    def solve_chunked(self, X: np.ndarray, chunk_size: int = 512, seed: int = 0,
+                      **kw) -> np.ndarray:
+        """Solve ``X`` in chunks of ``chunk_size`` rows, chunk j with seed
+        ``seed + j`` and its own batch-global statistics, as serial
+        ``solve`` calls do. Every chunk is issued before any result is
+        copied to the host: CUDA launches are asynchronous, so the host
+        prepares chunk j+1 while the card runs chunk j."""
+        pending = [self._solve(X[i:i + chunk_size], seed=seed + j, **kw)
+                   for j, i in enumerate(range(0, X.shape[0], chunk_size))]
+        return np.concatenate([p.cpu().numpy() for p in pending])
+
+    def _solve(self, X, omega=None, best_of: int = 1, seed: int = 0, sampler: str = "ddpm",
+               n_steps: Optional[int] = None, eta: float = 0.0,
+               renorm_steps: Optional[int] = None) -> torch.Tensor:
+        """The decoded (n, D) solutions on the device, not yet copied."""
         if sampler not in ("ddpm", "ddim"):
             raise ValueError(f"unknown sampler {sampler!r}; use 'ddpm' or 'ddim'")
         if sampler == "ddpm" and (n_steps is not None or eta != 0.0 or renorm_steps is not None):
             raise ValueError("n_steps, eta and renorm_steps are DDIM options")
-        omega = self.task.default_omega if omega is None else float(omega)
-        cond = torch.as_tensor(np.asarray(X, np.float32), device=self.device)
-        B, T = cond.shape[0], self.sched.T
+        omega = self.task.default_omega if omega is None else omega
+        omegas = (np.full(best_of, omega, np.float32) if np.isscalar(omega)
+                  else np.asarray(omega, np.float32))
+        if omegas.ndim != 1 or omegas.size == 0:
+            raise ValueError(f"omega must be a scalar or a non-empty list, got {omega!r}")
+        X = np.asarray(X, np.float32)
+        n = X.shape[0]
+        b = self._bucket(n)
+        spec = _Spec(b, sampler, (n_steps or self.sched.T) if sampler == "ddim" else None,
+                     omegas.size, bool(np.all(omegas == 0.0)), float(eta), renorm_steps)
+        self.programs.add(spec)
+        Xp = np.concatenate([X, np.repeat(X[-1:], b - n, axis=0)]) if b > n else X
+        host = {"cond": Xp,
+                "cond_unnorm": np.asarray(self.task.unnormalize_x(Xp, self.config), np.float32),
+                "valid": ((np.arange(b) < n).astype(np.float32)[:, None]
+                          if self.buckets else None),
+                "omega": omegas}
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        param = self.config.get("parameterization", "eps")
-        if sampler == "ddim":
-            init = torch.randn((B, self._D), generator=gen, device=self.device)
-            y0 = ddim_sample(self._apply, self.sched, cond, omega, self._D, generator=gen,
-                             n_steps=n_steps, eta=eta, init_noise=init,
-                             renorm_steps=renorm_steps, parameterization=param,
-                             skip_uncond=omega == 0.0)
-        else:
-            flat = torch.randn((B, T + 1, self._D), generator=gen, device=self.device)
-            y0 = cfg_sample(self._apply, self.sched, cond, omega, self._D,
-                            init_noise=flat[:, 0], step_noise=flat[:, 1:].transpose(0, 1),
-                            parameterization=param, skip_uncond=omega == 0.0)
-        return self.task.decode(y0, self.config).cpu().numpy()
+        if self.graphs and self.device.type == "cuda" and b in (self.buckets or ()):
+            g = self._graphs.get(spec)
+            if g is None:
+                g = self._graphs[spec] = self._capture(spec, host, gen, n)
+            else:
+                self._fill(g.inputs, host, gen, n)
+            g.graph.replay()
+            resblock.LAUNCHES += g.launches[0]
+            mega.LAUNCHES += g.launches[1]
+            # A copy, so the next replay cannot overwrite a pending result.
+            return g.out[:n].clone()
+        inputs = self._alloc(spec, host["valid"] is not None)
+        self._fill(inputs, host, gen, n)
+        return self._program(spec, inputs)[:n]
+
+    # -- the program and its inputs -----------------------------------------------
+
+    def _columns(self, spec: _Spec) -> int:
+        if spec.sampler == "ddpm":
+            return self.sched.T + 1
+        return 1 + (len(respaced_steps(self.sched.T, spec.n_steps)) if spec.eta > 0 else 0)
+
+    def _alloc(self, spec: _Spec, masked: bool) -> _Inputs:
+        b, dev = spec.bucket, self.device
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        return _Inputs(zeros(b, self._C), zeros(b, self._C), zeros(b, 1) if masked else None,
+                       zeros(spec.candidates, b, self._columns(spec), self._D),
+                       zeros(spec.candidates))
+
+    def _fill(self, inputs: _Inputs, host: Dict, gen: torch.Generator, n: int) -> None:
+        """Copy a request into ``inputs`` and draw its noise: candidate by
+        candidate, the n real rows from ``gen``; pad rows zero."""
+        for name in ("cond", "cond_unnorm", "valid", "omega"):
+            dst = getattr(inputs, name)
+            if dst is not None:
+                src = torch.from_numpy(np.ascontiguousarray(host[name]))
+                if dst.is_cuda:      # pinned, so the copy does not hold the host
+                    src = src.pin_memory()
+                dst.copy_(src, non_blocking=dst.is_cuda)
+        inputs.noise[:, n:].zero_()
+        for k in range(inputs.noise.shape[0]):
+            inputs.noise[k, :n].normal_(generator=gen)
+
+    def _program(self, spec: _Spec, inputs: _Inputs) -> torch.Tensor:
+        """Sample, decode and (best-of) select: the work a graph captures."""
+        decs, scores = [], []
+        for k in range(spec.candidates):
+            y0 = self._sample(spec, inputs, k)
+            kw = {} if inputs.valid is None else {"valid_mask": inputs.valid}
+            if self.task.decode_with_x is not None:
+                dec = self.task.decode_with_x(y0, inputs.cond_unnorm, self.config, **kw)
+            else:
+                dec = self.task.decode(y0, self.config, **kw)
+            if spec.candidates == 1:
+                return dec
+            decs.append(dec)
+            scores.append(self.task.objective(dec, inputs.cond_unnorm, self.config))
+        return select_best(torch.stack(decs), torch.stack(scores), self.task.higher_is_better)
+
+    def _sample(self, spec: _Spec, inputs: _Inputs, k: int) -> torch.Tensor:
+        noise, omega = inputs.noise[k], inputs.omega[k]
+        init = noise[:, 0].contiguous()
+        rest = noise[:, 1:].transpose(0, 1)
+        if spec.sampler == "ddim":
+            return ddim_sample(self._apply, self.sched, inputs.cond, omega, self._D,
+                               n_steps=spec.n_steps, eta=spec.eta, init_noise=init,
+                               step_noise=rest if spec.eta > 0 else None,
+                               renorm_steps=spec.renorm_steps, valid_mask=inputs.valid,
+                               parameterization=self._param, skip_uncond=spec.skip)
+        return cfg_sample(self._apply, self.sched, inputs.cond, omega, self._D,
+                          init_noise=init, step_noise=rest, valid_mask=inputs.valid,
+                          parameterization=self._param, skip_uncond=spec.skip)
+
+    def _capture(self, spec: _Spec, host: Dict, gen: torch.Generator, n: int) -> _Graph:
+        """Capture ``spec``'s program as a CUDA graph on inputs that hold
+        this request. The program runs once eagerly first, on a side stream
+        (cuBLAS and the kernels' first-launch set-up happen outside the
+        capture), and those launches count. Launches recorded during the
+        capture do not run, so the wrappers keep them out of ``LAUNCHES``;
+        their number is added per replay instead."""
+        inputs = self._alloc(spec, masked=True)
+        self._fill(inputs, host, gen, n)
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._program(spec, inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = (resblock.CAPTURED, mega.CAPTURED)
+        try:
+            with torch.cuda.graph(graph):
+                out = self._program(spec, inputs)
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture failed for {spec}: {e}") from e
+        return _Graph(graph, inputs, out,
+                      (resblock.CAPTURED - before[0], mega.CAPTURED - before[1]))

@@ -1,4 +1,4 @@
-from .base import Task
+from .base import Task, select_best
 from .msr import MSR
 from .nu import NU, NU_DIRECT
 

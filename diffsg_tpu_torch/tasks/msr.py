@@ -27,6 +27,10 @@ def _unnorm_x(X, config):
     return X * (mx - mn) + mn
 
 
+def _unnorm_y(Y, config):
+    return Y  # MSR labels are stored unscaled
+
+
 def _build_model(cfg):
     return unet_msr(cfg["M"], cfg.get("proj_dim", 128),
                     tuple(cfg.get("dims", (64, 32, 16, 8))))
@@ -38,6 +42,7 @@ MSR = Task(
     decode=_decode,
     objective=_objective,
     unnormalize_x=_unnorm_x,
+    unnormalize_y=_unnorm_y,
     data_dim=lambda cfg: cfg["M"],
     cond_dim=lambda cfg: cfg["M"],
     higher_is_better=True,

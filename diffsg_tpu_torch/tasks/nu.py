@@ -39,12 +39,21 @@ def _unnorm_x(X, config):
     return X
 
 
+def _unnorm_y(Y, config):
+    Y = np.array(Y, dtype=float)
+    Y[:, 0] *= config["width"]
+    Y[:, 1] *= config["height"]
+    Y[:, 2:] *= config["P_sum"]
+    return Y
+
+
 NU = Task(
     name="nu",
     build_model=lambda cfg: unet_nu(cfg["K"]),
     decode=_decode,
     objective=_objective,
     unnormalize_x=_unnorm_x,
+    unnormalize_y=_unnorm_y,
     data_dim=lambda cfg: 2 + cfg["K"],
     cond_dim=lambda cfg: 2 * cfg["K"],
     higher_is_better=True,

@@ -232,3 +232,104 @@ def test_cuda_mega_wrapper_rejects_what_the_kernel_does_not_take():
                     *mega_kernel_inputs(model, *bf, torch.bfloat16), tile_rows=16)
     with pytest.raises(ValueError, match="is on"):
         unet_forward_mega(model, y, t.cpu(), c, m)
+
+
+@pytest.mark.cuda
+def test_cuda_mega_follows_its_input_type():
+    """A bf16 copy of the net on bf16 inputs, no compute_dtype: bf16 out,
+    against its plain version (``pallas_mega.py:155-198``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import copy
+
+    model, inputs = mega_inputs("nu", 1000, seed=5, device="cuda")
+    low = copy.deepcopy(model).to(torch.bfloat16)
+    bf = [a.bfloat16() for a in inputs]
+    before = mega.LAUNCHES
+    with torch.no_grad():
+        out = unet_forward_mega(low, *bf)
+        torch.cuda.synchronize()
+        ref = unet_forward_mega_reference(low, *bf)
+    assert mega.LAUNCHES == before + 1
+    assert out.dtype == ref.dtype == torch.bfloat16
+    # The bf16 tolerance of test_cuda_mega_matches_reference.
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=2e-2 * float(ref.float().abs().max()))
+
+
+def _serve_solver(ckpt, task, backend, **kw):
+    import pathlib
+
+    from diffsg_tpu_torch.serve import Solver
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "ckpts" / ckpt
+    return Solver.from_checkpoint(str(path), task=task, backend=backend, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,per_request", [("fused", 2700), ("mega", 100)])
+def test_cuda_graph_replay_equals_eager_and_counts_launches(backend, per_request):
+    """One CUDA graph per (bucket, config): replays equal the same program
+    run eagerly bit for bit, and each replay adds its captured launches to
+    the counters, which the capture itself does not move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from diffsg_tpu_torch.serve import Solver
+
+    graphed = _serve_solver("ddpm_msr_3c_T100", "msr", backend, buckets=(64, 256))
+    eager = Solver(graphed.task, graphed.model, graphed.sched, graphed.config, backend=backend,
+                   buckets=(64, 256), graphs=False)
+    X = np.random.default_rng(0).uniform(0, 1, (50, 3)).astype(np.float32)
+    counter = resblock if backend == "fused" else mega
+    launches, captured = counter.LAUNCHES, counter.CAPTURED
+    first = graphed.solve(X, seed=1)         # warm run, capture, replay
+    assert len(graphed._graphs) == 1
+    assert counter.CAPTURED == captured + per_request
+    assert counter.LAUNCHES == launches + 2 * per_request    # the warm run and one replay
+    launches = counter.LAUNCHES
+    again = graphed.solve(X, seed=1)
+    assert counter.LAUNCHES == launches + per_request and counter.CAPTURED == captured + per_request
+    np.testing.assert_array_equal(first, again)
+    np.testing.assert_array_equal(first, eager.solve(X, seed=1))
+    # omega is a runtime input of the graph: another scale, the same graph.
+    np.testing.assert_array_equal(graphed.solve(X, omega=150.0, seed=2),
+                                  eager.solve(X, omega=150.0, seed=2))
+    graphed.solve(X[:40], seed=2)
+    assert len(graphed._graphs) == 1
+    # omega 0 is its own graph (the conditional half only), as is a bucket.
+    np.testing.assert_array_equal(graphed.solve(X, omega=0.0, seed=3),
+                                  eager.solve(X, omega=0.0, seed=3))
+    graphed.solve(np.concatenate([X] * 3), seed=3)
+    assert len(graphed._graphs) == 3
+    # Above the largest bucket: eager, no graph.
+    graphed.solve(np.concatenate([X] * 6), seed=3)
+    assert len(graphed._graphs) == 3
+
+
+@pytest.mark.cuda
+def test_cuda_bucket_invariance_and_best_of():
+    """NU DDIM-3 (omega 0.125, the production checkpoint): 100 rows in
+    bucket 128 against an unbucketed solve, at the JAX package's bucket
+    tolerance; best-of-4 with an omega mixture, graph against eager."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diffsg_tpu_torch.serve import Solver
+
+    bucketed = _serve_solver("ddpm_nu_3u_aug32_s8c", "nu_direct", "mega", buckets=(128,))
+    plain = Solver(bucketed.task, bucketed.model, bucketed.sched, bucketed.config,
+                   backend="mega")
+    eager = Solver(bucketed.task, bucketed.model, bucketed.sched, bucketed.config,
+                   backend="mega", buckets=(128,), graphs=False)
+    X = np.random.default_rng(1).uniform(0, 1, (100, 6)).astype(np.float32)
+    kw = {"omega": 0.125, "sampler": "ddim", "n_steps": 3}
+    np.testing.assert_allclose(bucketed.solve(X, seed=4, **kw), plain.solve(X, seed=4, **kw),
+                               rtol=1e-3, atol=1e-2)
+    mix = {"omega": [0.0625, 0.125, 0.25, 0.5], "best_of": 4, "sampler": "ddim", "n_steps": 3}
+    best = bucketed.solve(X, seed=4, **mix)
+    np.testing.assert_array_equal(best, eager.solve(X, seed=4, **mix))
+    users = torch.tensor(bucketed.task.unnormalize_x(X, bucketed.config), dtype=torch.float32)
+    one = bucketed.solve(X, seed=4, **{**kw, "omega": 0.0625})
+    rate = bucketed.task.objective
+    assert bool((rate(torch.from_numpy(best), users, {}) >=
+                 rate(torch.from_numpy(one), users, {})).all())

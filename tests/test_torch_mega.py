@@ -332,7 +332,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         pack_params(UNet1D(input_dim=5, proj_dim=30, cond_dim=6, dims=(32, 16, 8)))
     with pytest.raises(ValueError, match="cuda or cpu"):
         unet_forward_mega(model, *[a.to("meta") for a in (y, t, c, m)])
-    with pytest.raises(ValueError, match="'mega' backend only"):
+    with pytest.raises(TypeError, match="float32 only"):
         unet_apply_fn(model, "fused", compute_dtype=torch.bfloat16)
     # Attention configs cannot be built, so no net with attention reaches
     # the kernel.

@@ -118,7 +118,7 @@ def test_waterfilling_matches_jax():
     np.testing.assert_allclose(got.sum(axis=1), 10.0, rtol=1e-6)
 
 
-@pytest.mark.parametrize("option", ["record_trace", "guidance_fn"])
+@pytest.mark.parametrize("option", ["guidance_scale", "guidance_fn"])
 def test_unported_options_raise(both, option):
     _, sched, model, _ = both
     with pytest.raises(TypeError, match=option):

@@ -52,10 +52,12 @@ def test_plain_and_fused_backends_agree(solver):
                                rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("option", ["best_of"])
+@pytest.mark.parametrize("option", ["mesh", "refine_iters"])
 def test_unported_solve_options_raise(solver, option):
     with pytest.raises(TypeError, match=option):
         solver.solve(_conditions(4), **{option: 2})
+    with pytest.raises(TypeError, match=option):
+        Solver(solver.task, solver.model, solver.sched, solver.config, **{option: 2})
 
 
 def _feasible(P, W):
