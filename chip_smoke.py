@@ -25,16 +25,27 @@ their answers:
 * the Solver's serving surface: one CUDA graph per bucket on ``fused`` and
   ``mega`` (eager, graph, graph, eager; replays equal to eager bit for bit,
   launches counted per replay), a bucket of 1,024 holding 1,000 real rows
-  against an unbucketed solve, and best-of-4 with an omega mixture.
+  against an unbucketed solve, and best-of-4 with an omega mixture;
+* the CO family at B = 32,768 (``ckpts/ddpm_co``, T=20, omega 500, on
+  ``fused``, ``mega`` and ``mega`` in bf16; ``co_ranked`` on
+  ``ckpts/ddpm_co_x0`` at omega 5000 and ``co_direct``), the MSR variants at
+  B = 8,192 (``msr_temp``, ``msr_wf``, ``msr_budget`` at 5 and 25 W), the
+  conditioned NU tasks at B = 524,288 (``nu_budget`` at 30 mW, ``nu_geo`` on
+  fields of 200, 400 and 600 m) and 50 refinement steps inside the bucket's
+  graph (MSR-3c, ``nu_geo``): each eagerly and from the graph, feasible row
+  by row, and held to the JAX package's mean quality (``JAX_QUALITY``).
 
 The residual-block kernel is held to its plain version at every block
-shape of the MSR-3c forward (16,384 rows) and at the two widest shapes of
+shape of the MSR-3c forward (16,384 rows) and of the CO forward (65,536
+rows, and 1,000 rows for its widest), and at the two widest shapes of
 a net of the shapes of ``ckpts/ddpm_msr_80c_budget`` (proj 256, dims
 256-128-64-32, input 80, condition 81) with seeded random weights, the
 widest net the repository ships: 512 -> 256 with a shortcut and 256 -> 256,
 at 16,384 rows and, for 512 -> 256, at a ragged 1,000 rows with a full
 t_proj; each case at every tile height its path is built for. The
-whole-UNet kernel is held to its plain version on MSR-3c, NU and that net.
+whole-UNet kernel is held to its plain version on MSR-3c, NU, that net, the
+CO net and the nets of ``ckpts/ddpm_nu_geo_x0f``, ``ddpm_msr_budget`` and
+``ddpm_nu_budget``.
 
 Every phase prints one JSON line with the seconds since start; any failure
 raises and exits non-zero. The last three lines are the ``kernels``
@@ -50,6 +61,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "ckpts", "ddpm_msr_3c_T100")
 NU_CKPT = os.path.join(REPO, "ckpts", "ddpm_nu_3u_aug32_s8c")
@@ -63,6 +76,8 @@ PEAK_BYTES = 3.35e12
 ROWS = 16_384          # 2B rows of the CFG fold at B = 8,192
 SERVE_B = 8_192
 NU_B = 524_288         # the JAX package's production NU batch (bench.py)
+CO_B = 32_768          # bench.py:_per_task_rows' CO batch
+CO_ROWS = 2 * CO_B
 NU_OMEGA, NU_STEPS = 0.125, 3
 # f32, TF32 off, summation order only. The deepest sums (512 terms, the
 # proj-256 blocks' input) of products of O(1) activations and weights of
@@ -87,6 +102,164 @@ NU_JAX_MEAN_RATE = 0.00042744530946947634
 # by tests/test_torch_bf16.py::test_nu_bf16_vs_jax_constant.
 NU_JAX_BF16_MEAN_RATE = 0.0004274172824807465
 MSR_MIX = [150.0, 500.0, 2000.0, 5000.0]   # best-of-4 omega mixture
+
+# -- quality against the JAX package ---------------------------------------------
+# Each spec is one served configuration on seeded inputs: the checkpoint, the
+# task, the dataset config over the checkpoint's own, the sampler ("ddpm" over
+# all T steps, or ("ddim", n)), omega, the rows and the projected-gradient
+# steps after the decode. Its per-row quality is the cost over
+# co_exact_solve's (CO, lower is better), the rate over waterfilling's at the
+# row's budget (MSR) or the NOMA rate (NU). Its noise is y_T and the per-step
+# z from np.random.default_rng(seed).
+CO_FIXTURE = os.path.join(REPO, "tests", "fixtures", "co_cond.npz")
+# ckpts/ddpm_co records no dataset config: the values of its training set,
+# datasets/3nodes_50000samples_new.csv, as ckpts/ddpm_co_x0 records them.
+CO_CONFIG = {"node_num": 3, "scaler_min": 0.001618138251306864,
+             "scaler_max": 9.996995111158247}
+QUALITY_SPECS = {
+    "co": dict(ckpt="ddpm_co", task="co", config=CO_CONFIG, omega=500.0, rows=("co",)),
+    "co_ranked": dict(ckpt="ddpm_co_x0", task="co_ranked", omega=5000.0, rows=("co",)),
+    "co_direct": dict(ckpt="exp_co_s2_clip", task="co_direct", omega=1.0, rows=("co",)),
+    "msr_temp": dict(ckpt="ddpm_msr_3c_T100", task="msr_temp", omega=500.0,
+                     rows=("msr", 512)),
+    "msr_refine": dict(ckpt="ddpm_msr_3c_T100", task="msr", omega=500.0, rows=("msr", 512),
+                       refine=50),
+    "msr_wf": dict(ckpt="ddpm_msr_3c_wf", task="msr_wf", omega=1.0, rows=("msr", 1024)),
+    "msr_budget_5": dict(ckpt="ddpm_msr_budget", task="msr_budget", config={"W": 5.0},
+                         omega=1.0, rows=("msr", 1024, 5.0)),
+    "msr_budget_25": dict(ckpt="ddpm_msr_budget", task="msr_budget", config={"W": 25.0},
+                          omega=1.0, rows=("msr", 1024, 25.0)),
+    "nu_budget": dict(ckpt="ddpm_nu_budget", task="nu_budget", config={"P_sum": 30.0},
+                      sampler=("ddim", 3), omega=0.125, rows=("nu_budget", 4096, 30.0)),
+    "nu_geo": dict(ckpt="ddpm_nu_geo_x0f", task="nu_geo", sampler=("ddim", 3), omega=0.5,
+                   rows=("nu_geo", 4096)),
+    "nu_geo_refine": dict(ckpt="ddpm_nu_geo_x0f", task="nu_geo", sampler=("ddim", 3),
+                          omega=0.5, rows=("nu_geo", 4096), refine=50),
+}
+# The JAX package's mean quality per spec, noise seed 0, flax forward on the
+# CPU, and the tolerance: 4 standard errors of the difference between two
+# JAX draws' means (seeds 0 and 1, from their per-row differences), but no
+# less than 1e-6 of the mean (8 float32 ulps): where every draw reaches the
+# optimum (msr_refine) the spread is float rounding alone. Computed and held
+# by tests/test_torch_co.py, test_torch_tasks.py and test_torch_refine.py
+# (test_*_vs_jax_constants).
+JAX_QUALITY = {
+    "co": (1.0895304273581132, 0.03838794270798506),
+    "co_ranked": (1.0343122543999925, 0.0027104437903954616),
+    "co_direct": (1.0800527355168015, 0.03241476819068911),
+    "msr_temp": (0.9978372390614823, 0.00043437960974434804),
+    "msr_refine": (1.0000000429572538, 1.0000000429572536e-06),
+    "msr_wf": (0.9999906264129095, 2.4263671568242067e-06),
+    "msr_budget_5": (0.9999487556051463, 1.4121820817363112e-05),
+    "msr_budget_25": (0.9999975467799231, 2.1548523156405994e-06),
+    "nu_budget": (0.000713795230616654, 7.736737432380983e-08),
+    "nu_geo": (0.0005522479747419595, 1.4223689930762734e-07),
+    "nu_geo_refine": (0.0007602846748611114, 1.4730445098868318e-06),
+}
+# On a spec's own inputs and noise the port's mean sits far inside that
+# tolerance: guidance and refinement's accept/reject part a few rows between
+# two float32 forwards. The port's plain forward on the CPU lands at most
+# 0.038 of the tolerance from the constant (co_ranked; nu_geo_refine 0.032,
+# co 0.023, msr_refine 0.018, the rest below 0.002). Held within 0.15, four
+# times that: on CO, 0.53% of the mean cost ratio.
+SAME_NOISE_SHARE = 0.15
+
+
+def co_rows():
+    """The CO fixture: 4,096 rows of the test split of
+    datasets/3nodes_50000samples_new.csv through the JAX package's loader
+    (loader-normalized conditions X (B, 9) and the oracle's labels Y)."""
+    with np.load(CO_FIXTURE) as d:
+        return d["X"].astype(np.float32), d["Y"].astype(np.float32)
+
+
+def quality_rows(rows):
+    """Loader-normalized conditions for a spec's ``rows``: the CO fixture;
+    MSR gains U(0, 1) (with the budget column W / 10 for ``msr_budget``); NU
+    users U(0, 1) and the budget P / 18; nu_geo square fields of 200, 400 or
+    600 m and budgets U(9, 36) mW, each row its own."""
+    kind = rows[0]
+    if kind == "co":
+        return co_rows()[0]
+    B = rows[1]
+    rng = np.random.default_rng({"msr": 11, "nu_budget": 12, "nu_geo": 13}[kind])
+    if kind == "msr":
+        X = rng.uniform(0, 1, (B, 3))
+        if len(rows) > 2:
+            X = np.concatenate([X, np.full((B, 1), rows[2] / 10.0)], axis=1)
+    elif kind == "nu_budget":
+        X = np.concatenate([rng.uniform(0, 1, (B, 6)), np.full((B, 1), rows[2] / 18.0)], axis=1)
+    else:
+        side = rng.choice([200.0, 400.0, 600.0], B)
+        X = np.concatenate([rng.uniform(0, 1, (B, 6)), rng.uniform(9, 36, (B, 1)) / 18.0,
+                            side[:, None] / 400.0, side[:, None] / 400.0], axis=1)
+    return X.astype(np.float32)
+
+
+def seeded_noise(seed: int, B: int, T: int, D: int):
+    """y_T (B, D) and the per-step z (T, B, D) from np.random.default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, D)).astype(np.float32),
+            rng.normal(size=(T, B, D)).astype(np.float32))
+
+
+def spec_quality(name: str, task, cfg, dec, Xu, exact=None):
+    """Per-row quality of spec ``name``'s decoded solutions ``dec`` on the
+    unnormalized conditions ``Xu`` (torch tensors on one device): the cost
+    over that of ``exact`` (co_exact_solve's, computed when not given) on
+    CO, the rate over waterfilling's at the budget on MSR, the NOMA rate on
+    NU. Returns it with CO's extra metrics against ``exact`` (else {})."""
+    from diffsg_tpu_torch.baselines import co_exact_solve, waterfilling
+
+    score = task.objective(dec, Xu, cfg)
+    if name.startswith("co"):
+        exact = co_exact_solve(Xu) if exact is None else exact
+        ref = task.objective(exact, Xu, cfg)
+        return score / ref, task.extra_metrics(dec.cpu().numpy(), exact.cpu().numpy(),
+                                               score.cpu(), ref.cpu(), cfg)
+    if name.startswith("msr"):
+        return score / task.objective(waterfilling(Xu[:, :cfg["M"]], cfg["W"]), Xu, cfg), {}
+    return score, {}
+
+
+def port_quality(name: str, seed: int, device: str = "cuda", backend: str = "mega"):
+    """The port's per-row quality (a numpy array) and solutions on spec
+    ``name``'s rows and seeded noise, through ``backend``'s forward."""
+    import torch
+
+    from diffsg_tpu_torch.diffusion import cfg_sample, ddim_sample
+    from diffsg_tpu_torch.models import unet_apply_fn
+    from diffsg_tpu_torch.serve import Solver
+    from diffsg_tpu_torch.tasks import refine_solutions
+
+    spec = QUALITY_SPECS[name]
+    solver = Solver.from_checkpoint(os.path.join(REPO, "ckpts", spec["ckpt"]), task=spec["task"],
+                                    device=device, backend=backend,
+                                    dataset_config=spec.get("config"))
+    task, cfg, dev = solver.task, solver.config, solver.sched.betas.device
+    X = quality_rows(spec["rows"])
+    B, D = X.shape[0], task.data_dim(cfg)
+    sampler = spec.get("sampler", "ddpm")
+    init, steps = seeded_noise(seed, B, solver.sched.T if sampler == "ddpm" else 0, D)
+    cond = torch.tensor(X, device=dev)
+    Xu = torch.tensor(np.asarray(task.unnormalize_x(X, cfg), np.float32), device=dev)
+    kw = dict(init_noise=torch.tensor(init, device=dev),
+              parameterization=cfg.get("parameterization", "eps"),
+              skip_uncond=spec["omega"] == 0.0)
+    apply_fn = unet_apply_fn(solver.model, backend)
+    with torch.no_grad():
+        if sampler == "ddpm":
+            y0 = cfg_sample(apply_fn, solver.sched, cond, spec["omega"], D,
+                            step_noise=torch.tensor(steps, device=dev), **kw)
+        else:
+            y0 = ddim_sample(apply_fn, solver.sched, cond, spec["omega"], D, n_steps=sampler[1],
+                             **kw)
+        dec = (task.decode_with_x(y0, Xu, cfg) if task.decode_with_x is not None
+               else task.decode(y0, cfg))
+        if spec.get("refine"):
+            dec = refine_solutions(task, dec, Xu, cfg, spec["refine"])
+        q = spec_quality(name, task, cfg, dec, Xu)[0]
+    return q.cpu().double().numpy(), dec.cpu().numpy()
 
 
 def emit(phase: str, **fields) -> None:
@@ -252,15 +425,36 @@ def main() -> int:
     blocks, shapes = block_shapes(model)
     check(len(blocks) == 27, f"27 residual blocks, found {len(blocks)}")
     p256_shapes = block_shapes(p256_model)[1]
+    co_solver = Solver.from_checkpoint(os.path.join(REPO, "ckpts", "ddpm_co"), task="co",
+                                       backend="fused", dataset_config=CO_CONFIG)
+    co_model = co_solver.model
+    geo_model = Solver.from_checkpoint(os.path.join(REPO, "ckpts", "ddpm_nu_geo_x0f"),
+                                       task="nu_geo", backend="mega").model
+    # The budget-conditioned nets: MSR-3c's and NU's widths, a condition one
+    # column wider (C 4 and 7), served by serve_msr_variants and serve_nu_cond.
+    budget_model = Solver.from_checkpoint(os.path.join(REPO, "ckpts", "ddpm_msr_budget"),
+                                          task="msr_budget", backend="mega").model
+    nub_model = Solver.from_checkpoint(os.path.join(REPO, "ckpts", "ddpm_nu_budget"),
+                                       task="nu_budget", backend="mega").model
+    check((budget_model.cond_dim, nub_model.cond_dim) == (4, 7),
+          f"budget nets' condition widths {budget_model.cond_dim}, {nub_model.cond_dim}")
+    co_blocks, co_shapes = block_shapes(co_model)
+    check(len(co_blocks) == 37, f"37 residual blocks in the CO net, found {len(co_blocks)}")
+    # Every block shape of nu_geo_x0f is one of the CO net's: its cases are those.
+    geo_shapes = block_shapes(geo_model)[1]
+    check(set(geo_shapes) <= set(co_shapes), f"nu_geo shapes {sorted(geo_shapes)} beyond CO's")
+    net_shapes = {"msr": shapes, "p256": p256_shapes, "co": co_shapes}
 
     rng = np.random.default_rng(0)
     per_shape = []
     cases = ([("msr", key, ROWS, 1) for key in shapes] + [("msr", (256, 128, True), 1000, 1000)]
              + [("p256", key, rows, t_rows) for key, rows, t_rows in
                 (((512, 256, True), ROWS, 1), ((256, 256, False), ROWS, 1),
-                 ((512, 256, True), 1000, 1000))])
+                 ((512, 256, True), 1000, 1000))]
+             + [("co", key, CO_ROWS, 1) for key in co_shapes]
+             + [("co", (128, 64, True), 1000, 1000)])
     for net, (din, dout, sc), rows, t_rows in cases:
-        res, per_forward = (shapes if net == "msr" else p256_shapes)[(din, dout, sc)]
+        res, per_forward = net_shapes[net][(din, dout, sc)]
         x = torch.tensor(rng.normal(size=(rows, din)), dtype=torch.float32, device=dev)
         t_proj = torch.tensor(rng.normal(size=(t_rows, dout)), dtype=torch.float32, device=dev)
         c_proj = torch.tensor(rng.normal(size=(rows, dout)), dtype=torch.float32, device=dev)
@@ -271,7 +465,7 @@ def main() -> int:
             torch.cuda.synchronize()
             launch = resblock.last_launch()
             ref = resblock_reference(*args)
-            err = float((out - ref).abs().max())
+            err, mean_err = float((out - ref).abs().max()), float((out - ref).abs().mean())
             check(bool(torch.isfinite(out).all()), f"finite kernel output at {din}->{dout}")
             check(err <= KERNEL_ATOL, f"kernel {din}->{dout} rows {rows}: max abs err {err}")
             k_ms = graph_ms(lambda: fused_residual_block(*args), reps=20, replays=3)
@@ -287,10 +481,10 @@ def main() -> int:
             k_call_ms = cuda_ms(lambda: fused_residual_block(*args), reps=20)
             p_call_ms = cuda_ms(lambda: resblock_reference(*args), reps=20)
         bound_ms, bound_by = resblock_bound(rows, t_rows, din, dout, sc)
-        on_path = net == "msr" and rows == ROWS
+        on_path = (net, rows) in (("msr", ROWS), ("co", CO_ROWS))
         row = {"net": net, "in": din, "out": dout, "shortcut": sc, "rows": rows,
                "t_rows": t_rows, "per_forward": per_forward if on_path else 0,
-               "max_abs_err": err, "kernel_ms": k_ms, "tile_ms": tile_ms, "plain_ms": p_ms,
+               "max_abs_err": err, "mean_abs_err": mean_err, "kernel_ms": k_ms, "tile_ms": tile_ms, "plain_ms": p_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "of_bound": bound_ms / k_ms,
                "library_ms": None, "kernel_call_ms": k_call_ms, "plain_call_ms": p_call_ms,
                **launch}
@@ -308,7 +502,19 @@ def main() -> int:
                   ("p256", p256_model, ROWS, torch.bfloat16),
                   ("msr", model, 1000, torch.float32), ("nu", nu_model, 1000, torch.bfloat16),
                   ("p256", p256_model, 1000, torch.float32),
-                  ("p256", p256_model, 1000, torch.bfloat16)]
+                  ("p256", p256_model, 1000, torch.bfloat16),
+                  ("co", co_model, CO_ROWS, torch.float32), ("co", co_model, CO_ROWS, torch.bfloat16),
+                  ("nu_geo", geo_model, 2 * NU_B, torch.float32),
+                  ("nu_geo", geo_model, 2 * NU_B, torch.bfloat16),
+                  ("co", co_model, 1000, torch.float32), ("co", co_model, 1000, torch.bfloat16),
+                  ("nu_geo", geo_model, 1000, torch.float32),
+                  ("nu_geo", geo_model, 1000, torch.bfloat16),
+                  ("msr_budget", budget_model, ROWS, torch.float32),
+                  ("msr_budget", budget_model, ROWS, torch.bfloat16),
+                  ("nu_budget", nub_model, 2 * NU_B, torch.float32),
+                  ("msr_budget", budget_model, 1000, torch.float32),
+                  ("nu_budget", nub_model, 1000, torch.float32),
+                  ("nu_budget", nub_model, 1000, torch.bfloat16)]
     mega_rows = []
     for net, net_model, rows, dtype in mega_cases:
         cd = None if dtype == torch.float32 else dtype
@@ -406,7 +612,8 @@ def main() -> int:
           "finite forward")
     check(fwd_err <= FORWARD_RTOL * scale, f"fused forward max abs err {fwd_err} vs {scale}")
     check(mega_fwd_err <= FORWARD_RTOL * scale, f"mega forward max abs err {mega_fwd_err}")
-    kernel_ms_per_fwd = sum(r["kernel_ms"] * r["per_forward"] for r in per_shape)
+    kernel_ms_per_fwd = sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
+                            if r["net"] == "msr")
     emit("forward", rows=ROWS, launches=fwd_launches, mega_launches=mega_fwd_launches,
          max_abs_err=fwd_err, mega_max_abs_err=mega_fwd_err, out_max_abs=scale,
          fused_ms=fused_fwd_ms, mega_ms=mega_fwd_ms, plain_ms=plain_fwd_ms,
@@ -751,43 +958,278 @@ def main() -> int:
             check(abs(row["ratios"][0] - row["ratios"][1]) <= 1e-3,
                   f"serve_buckets {name}: mean ratios {row['ratios']}")
 
+    # -- the CO family, the MSR variants, conditioned NU and refinement ------------
+    # Each spec of QUALITY_SPECS serves its own rows, tiled up to the batch, so
+    # its mean quality has the expectation of the JAX constant's. Its noise is
+    # the Solver's, another draw than the constant's: held within the
+    # constant's seed-to-seed tolerance, in float32 and bf16 alike. The same
+    # program runs eagerly and replayed from the bucket's graph, in turns, and
+    # the two agree bit for bit. Then the spec's exact inputs and noise on the
+    # card (port_quality) are held to the JAX constant within
+    # SAME_NOISE_SHARE of its tolerance.
+    from diffsg_tpu_torch.baselines import co_exact_solve
+    from diffsg_tpu_torch.tasks import refine_solutions
+
+    def spec_solver(name, backend):
+        spec = QUALITY_SPECS[name]
+        return Solver.from_checkpoint(os.path.join(REPO, "ckpts", spec["ckpt"]),
+                                      task=spec["task"], backend=backend,
+                                      dataset_config=spec.get("config"))
+
+    def spec_rows(name, B):
+        X = quality_rows(QUALITY_SPECS[name]["rows"])
+        return np.concatenate([X] * (B // X.shape[0]))
+
+    def spec_kw(name):
+        spec = QUALITY_SPECS[name]
+        kw = {"omega": spec["omega"]}
+        if spec.get("sampler", "ddpm") != "ddpm":
+            kw.update(sampler="ddim", n_steps=spec["sampler"][1])
+        return kw
+
+    def per_request(name, base, backend):
+        sampler = QUALITY_SPECS[name].get("sampler", "ddpm")
+        steps = base.sched.T if sampler == "ddpm" else sampler[1]
+        if backend == "mega":
+            return steps
+        return steps * len(block_shapes(base.model)[0])
+
+    def feasible(name, base, S, Xu):
+        """Every row finite and inside its task's feasible set."""
+        check(bool(np.isfinite(S).all()), f"{name}: finite solutions")
+        if name.startswith("co"):
+            sums = S.sum(axis=1)
+            check(bool((S >= 0).all()), f"{name}: shares >= 0")
+            gap = float(np.where(sums == 0, 0.0, np.abs(sums - 1.0)).max())
+            check(gap <= 1e-5, f"{name}: offloaded shares sum to 1 within 1e-5, off by {gap}")
+        elif name.startswith("msr"):
+            W = base.config["W"]
+            check(bool((S >= 0).all()), f"{name}: p >= 0")
+            gap = float(np.abs(S.sum(axis=1) - W).max())
+            check(gap <= 1e-4 * W, f"{name}: |sum p - W| = {gap}")
+        else:
+            K = base.config["K"]
+            box = (Xu[:, 2 * K + 1:2 * K + 3] if base.task.name == "nu_geo"
+                   else np.array([[base.config["width"], base.config["height"]]]))
+            budget = Xu[:, 2 * K]
+            check(bool(((S[:, :2] >= 0) & (S[:, :2] <= box * (1 + 1e-6))).all()),
+                  f"{name}: UAV inside each row's own field")
+            check(bool((S[:, 2:] >= 0).all()), f"{name}: p >= 0")
+            gap = float((np.abs(S[:, 2:].sum(axis=1) - budget) / budget).max())
+            check(gap <= 1e-4, f"{name}: powers off their row's budget by {gap} (relative)")
+
+    def serve_spec(name, backend, B, seeds, refine=None, bf16=False, held_to="spec"):
+        """Serve spec ``name`` at B rows on ``backend``: eagerly and from the
+        bucket's graph in turns (bf16: eagerly, through cfg_sample with the
+        mega forward in bf16, as the MSR-3c bf16 phase), each request's mean
+        quality held to the JAX constant ``held_to`` (the spec's own by
+        default; None: reported only). Returns the row."""
+        spec = QUALITY_SPECS[name]
+        base = spec_solver(name, backend)
+        refine = spec.get("refine", 0) if refine is None else refine
+        X = spec_rows(name, B)
+        Xu = np.asarray(base.task.unnormalize_x(X, base.config), np.float32)
+        Xu_t = torch.tensor(Xu, device=dev)
+        exact = co_exact_solve(Xu_t) if name.startswith("co") else None
+        kw = spec_kw(name)
+        n_req = per_request(name, base, backend)
+        held_to = name if held_to == "spec" else held_to
+        mean, tol = JAX_QUALITY[held_to] if held_to else (None, None)
+        row = {"B": B, "backend": backend + (" bf16" if bf16 else ""), "T": base.sched.T,
+               **kw, "refine_iters": refine, "launches_per_request": n_req}
+        runs = {}
+        if bf16:
+            apply_fn = unet_apply_fn(base.model, "mega", compute_dtype=torch.bfloat16)
+            cond = torch.tensor(X, device=dev)
+            D = base.task.data_dim(base.config)
+
+            @torch.inference_mode()
+            def solve(seed):
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                flat = torch.randn((B, base.sched.T + 1, D), generator=gen, device=dev)
+                y0 = cfg_sample(apply_fn, base.sched, cond, kw["omega"], D, init_noise=flat[:, 0],
+                                step_noise=flat[:, 1:].transpose(0, 1),
+                                parameterization=base.config.get("parameterization", "eps"),
+                                compute_dtype=torch.bfloat16)
+                dec = (base.task.decode_with_x(y0, Xu_t, base.config) if base.task.decode_with_x
+                       else base.task.decode(y0, base.config))
+                return dec.cpu().numpy()
+
+            reqs, n_fused, n_mega = serve(solve, seeds)
+            check(n_mega == len(seeds) * n_req and n_fused == 0,
+                  f"{name} bf16: {n_req} mega launches a request, counted {n_mega}, {n_fused}")
+            runs["eager"] = reqs
+            launches = n_mega
+        else:
+            def make(graphs):
+                return Solver(base.task, base.model, base.sched, base.config, backend=backend,
+                              buckets=(B,), graphs=graphs, refine_iters=refine)
+
+            eager, graphed = make(False), make(True)
+            t0 = time.perf_counter()
+            graphed.solve(X, seed=seeds[0], **kw)           # warm run and capture
+            torch.cuda.synchronize()
+            row["capture_s"] = time.perf_counter() - t0
+            launches = 0
+            for mode, s_ in (("eager", eager), ("graph", graphed)):
+                reqs, n_fused, n_mega = serve(lambda seed: s_.solve(X, seed=seed, **kw), seeds)
+                counted, other = (n_fused, n_mega) if backend == "fused" else (n_mega, n_fused)
+                check(counted == len(seeds) * n_req and other == 0,
+                      f"{name} {backend} {mode}: {n_req} launches a request, counted "
+                      f"{counted} and {other}")
+                launches += counted
+                runs[mode] = reqs
+            for a, b in zip(runs["eager"], runs["graph"]):
+                check(np.array_equal(a["P"], b["P"]),
+                      f"{name} {backend}: the graph's seed {a['seed']} differs from eager")
+            del eager, graphed
+        for mode, reqs in runs.items():
+            for r in reqs:
+                feasible(name, base, r["P"], Xu)
+                q, extra = spec_quality(name, base.task, base.config,
+                                        torch.tensor(r["P"], device=dev), Xu_t, exact)
+                r["q"] = q.double().cpu().numpy()
+                r["quality"] = float(r["q"].mean())
+                r.update(extra)
+                if held_to:
+                    check(abs(r["quality"] - mean) <= tol,
+                          f"{name} {row['backend']} {mode} seed {r['seed']}: mean quality "
+                          f"{r['quality']} vs the JAX package's {mean} (+-{tol})")
+            row[mode] = {"solutions_per_s": rate_per_s(reqs, B),
+                         "requests": [{k: r[k] for k in r if k not in ("P", "q")} for r in reqs]}
+        row["jax_quality"], row["tol"] = mean, tol
+        row["launches"] = launches
+        row["_runs"] = runs
+        return row
+
+    def vs_jax(name, backend="mega"):
+        zero_counts()
+        q, _ = port_quality(name, 0, "cuda", backend)
+        mean, tol = JAX_QUALITY[name]
+        limit = SAME_NOISE_SHARE * tol
+        check(abs(q.mean() - mean) <= limit,
+              f"{name} {backend} on the card, JAX's inputs and noise: mean {q.mean()} vs the "
+              f"JAX package's {mean} (+-{limit})")
+        return {"backend": backend, "rows": int(q.size), "mean": float(q.mean()),
+                "jax_mean": mean, "tol": tol, "limit": limit,
+                "diff_over_tol": abs(float(q.mean()) - mean) / tol,
+                "launches": mega.LAUNCHES if backend == "mega" else resblock.LAUNCHES}
+
+    def public_row(row):
+        return {k: v for k, v in row.items() if k != "_runs"}
+
+    new_launches = {"fused": 0, "mega": 0}
+
+    # -- serve_co: bench.py's CO row (ckpts/ddpm_co, T=20, omega 500, B=32,768) --
+    co_rows_out = {}
+    for backend, bf16 in (("fused", False), ("mega", False), ("mega", True)):
+        row = serve_spec("co", backend, CO_B, [0, 1] if not bf16 else [0, 1, 2], bf16=bf16)
+        new_launches["fused" if backend == "fused" else "mega"] += row["launches"]
+        co_rows_out[row["backend"]] = public_row(row)
+    check(co_rows_out["fused"]["launches_per_request"] == 740,
+          "740 fused launches per CO request")
+    emit("serve_co", vs_jax=vs_jax("co"), vs_jax_fused=vs_jax("co", "fused"), **co_rows_out)
+    torch.cuda.empty_cache()
+
+    # -- serve_co_ranked: round 3's recipe (ckpts/ddpm_co_x0, omega 5000) and co_direct
+    rows_out = {}
+    for name in ("co_ranked", "co_direct"):
+        row = serve_spec(name, "mega", CO_B, [0, 1])
+        new_launches["mega"] += row["launches"]
+        rows_out[name] = {**public_row(row), "vs_jax": vs_jax(name)}
+    emit("serve_co_ranked", **rows_out)
+
+    # -- serve_msr_variants: msr_temp, msr_wf, msr_budget at 5 W and 25 W --------
+    rows_out = {}
+    for name in ("msr_temp", "msr_wf", "msr_budget_5", "msr_budget_25"):
+        row = serve_spec(name, "mega", SERVE_B, [0, 1])
+        new_launches["mega"] += row["launches"]
+        rows_out[name] = {**public_row(row), "vs_jax": vs_jax(name)}
+    emit("serve_msr_variants", **rows_out)
+
+    # -- serve_nu_cond: nu_budget at 30 mW, nu_geo on mixed fields, B=524,288 ----
+    rows_out = {}
+    for name in ("nu_budget", "nu_geo"):
+        row = serve_spec(name, "mega", NU_B, [0, 1])
+        new_launches["mega"] += row["launches"]
+        rows_out[name] = {**public_row(row), "vs_jax": vs_jax(name)}
+    emit("serve_nu_cond", **rows_out)
+    torch.cuda.empty_cache()
+
+    # -- serve_refine: 50 projected-gradient steps after the decode, in the graph --
+    rows_out = {}
+    # The unrefined MSR-3c decode has no JAX constant here: the mean
+    # waterfilling ratio of the earlier MSR phases' program, reported.
+    for name, unrefined_constant, B in (("msr_refine", None, SERVE_B),
+                                        ("nu_geo_refine", "nu_geo", NU_B)):
+        row = serve_spec(name, "mega", B, [0, 1])
+        base_row = serve_spec(name, "mega", B, [0], refine=0, held_to=unrefined_constant)
+        new_launches["mega"] += row["launches"] + base_row["launches"]
+        refined, unrefined = row["_runs"]["graph"][0]["q"], base_row["_runs"]["graph"][0]["q"]
+        # Refinement starts from the decode's projection (the identity up to
+        # rounding on a feasible decode): no row may end below it.
+        worse = int((refined < unrefined - 1e-6 * np.abs(unrefined)).sum())
+        check(worse == 0, f"{name}: {worse} refined rows worse than their unrefined decode")
+        rows_out[name] = {**public_row(row), "unrefined_quality": float(unrefined.mean()),
+                          "rows_improved": int((refined > unrefined).sum()),
+                          "unrefined_solutions_per_s": base_row["graph"]["solutions_per_s"],
+                          "vs_jax": vs_jax(name)}
+        # One refinement step's device time: ten steps less one, each
+        # replayed from a graph, on the unrefined decode.
+        base = spec_solver(name, "mega")
+        Xu_t = torch.tensor(np.asarray(base.task.unnormalize_x(spec_rows(name, B), base.config),
+                                       np.float32), device=dev)
+        Y = torch.tensor(base_row["_runs"]["graph"][0]["P"], device=dev)
+        steps_ms = [graph_ms(lambda n=n: refine_solutions(base.task, Y, Xu_t, base.config, n),
+                             reps=3, replays=2) for n in (1, 11)]
+        rows_out[name]["step_ms"] = (steps_ms[1] - steps_ms[0]) / 10
+        del row, base_row, Y, Xu_t
+    rows_out["msr_temp_same_draws_vs_jax"] = vs_jax("msr_temp")
+    emit("serve_refine", **rows_out)
+    torch.cuda.empty_cache()
+
     # -- kernels: one line per kernel ---------------------------------------------
-    main_shapes = [r for r in per_shape if r["per_forward"]]
+    main_shapes = [r for r in per_shape if r["per_forward"] and r["net"] == "msr"]
     bounds = {}
     for r in main_shapes:
         bounds[r["bound_by"]] = bounds.get(r["bound_by"], 0.0) + r["bound_ms"] * r["per_forward"]
     msr_f32 = mega_rows[0]
     print(json.dumps({"kernels": [
         {"name": "fused_residual_block", "route": "cuda", "source": RESBLOCK_SOURCE,
-         "replaces": RESBLOCK_REPLACES, "launches": 2 * 2700 + serve_graph_launches["fused"],
+         "replaces": RESBLOCK_REPLACES,
+         "launches": 2 * 2700 + serve_graph_launches["fused"] + new_launches["fused"],
          "max_abs_err": max(r["max_abs_err"] for r in per_shape),
          "ms": kernel_ms_per_fwd,
          "plain_ms": sum(r["plain_ms"] * r["per_forward"] for r in main_shapes),
          "bound_ms": sum(bounds.values()), "bound_by": max(bounds, key=bounds.get),
          "library_ms": None,
          "per": f"one MSR-3c forward: the 27 launches at {ROWS} rows; launches over the "
-                f"2 fused serving requests and serve_graph's 8 fused requests (4 replayed)",
+                f"2 fused serving requests, serve_graph's 8 fused requests (4 replayed) and "
+                f"serve_co's 4 fused requests (2 replayed, {new_launches['fused']})",
+         "co_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
+                              if r["net"] == "co"),
          "cases": [{k: r[k] for k in ("net", "in", "out", "shortcut", "rows", "per_forward",
                                       "variant", "tile_rows", "grid", "max_abs_err",
-                                      "kernel_ms", "tile_ms", "plain_ms", "bound_ms",
-                                      "bound_by")}
+                                      "mean_abs_err", "kernel_ms", "tile_ms", "plain_ms",
+                                      "bound_ms", "bound_by")}
                    for r in per_shape]},
         {"name": "unet_forward_mega", "route": "cuda", "source": MEGA_SOURCE,
          "replaces": MEGA_REPLACES,
          "launches": (serve_msr_mega_launches + serve_msr_bf16_launches + serve_nu_launches
                       + serve_nu_bf16_launches + serve_graph_launches["mega"]
-                      + serve_best_of_launches),
+                      + serve_best_of_launches + new_launches["mega"]),
          "max_abs_err": max(r["max_abs_err"] for r in mega_rows),
          "ms": msr_f32["kernel_ms"], "plain_ms": msr_f32["plain_ms"],
          "bound_ms": msr_f32["bound_ms"], "bound_by": msr_f32["bound_by"], "library_ms": None,
          "per": f"one MSR-3c float32 forward at {ROWS} rows; launches over serve_msr_mega "
                 f"({serve_msr_mega_launches}), serve_msr_mega_bf16 ({serve_msr_bf16_launches}), "
                 f"serve_nu ({serve_nu_launches}), serve_nu_bf16 ({serve_nu_bf16_launches}), "
-                f"serve_graph ({serve_graph_launches['mega']}) and serve_best_of "
-                f"({serve_best_of_launches})",
+                f"serve_graph ({serve_graph_launches['mega']}), serve_best_of "
+                f"({serve_best_of_launches}) and the CO, MSR-variant, conditioned-NU and "
+                f"refinement phases ({new_launches['mega']})",
          "cases": [{k: r[k] for k in ("net", "dtype", "rows", "tile_rows", "max_abs_err",
-                                      "kernel_ms", "plain_ms", "plain_bf16_ms", "bound_ms",
-                                      "bound_by")}
+                                      "mean_abs_err", "kernel_ms", "plain_ms", "plain_bf16_ms",
+                                      "bound_ms", "bound_by")}
                    for r in mega_rows]},
     ]}), flush=True)
     print(smi, flush=True)

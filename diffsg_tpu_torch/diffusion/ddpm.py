@@ -16,8 +16,9 @@ numerics are kept:
 
 ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the denoiser forward in that
 type and keeps the CFG combine and the reverse step in float32.
-``record_trace`` returns the per-step trajectory beside ``y_0``. Not ported
-yet: ``guidance_fn``.
+``record_trace`` returns the per-step trajectory beside ``y_0``.
+``guidance_fn`` tilts each step's epsilon by the gradient of a per-row
+cost at the step's ``x0`` estimate (objective guidance).
 
 ``omega`` may be a Python number or a 0-d tensor on ``cond``'s device: a
 tensor keeps one captured CUDA graph valid for every guidance scale.
@@ -123,6 +124,9 @@ def cfg_sample(
     skip_uncond: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
     record_trace: bool = False,
+    guidance_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    guidance_scale: float = 0.0,
+    guidance_relative: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, SampleTrace]]:
     """Batched CFG reverse sampler; returns ``y_0`` (B, data_dim), or
     ``(y_0, SampleTrace)`` with ``record_trace``.
@@ -149,6 +153,15 @@ def cfg_sample(
         compute_dtype=...)``).
       record_trace: also return the state and the CFG-combined epsilon
         after every step (``SampleTrace``, each (T, B, D)).
+      guidance_fn: optional per-row cost ``(B, D) -> (B,)``, differentiable
+        with ``torch.autograd``. Each step adds
+        ``guidance_scale * sqrt(1 - abar_i) * grad(sum cost)(x0_hat)`` to
+        the epsilon, the gradient taken at ``x0_hat = (y_t - sqrt(1 -
+        abar_i) eps) / sqrt(abar_i)`` as a leaf (not through the denoiser).
+        Tensors it closes over must not be inference tensors.
+      guidance_scale: the tilt's scale; 0 leaves the epsilon as it is.
+      guidance_relative: normalize the gradient per row and scale the tilt
+        by the row's epsilon RMS instead of ``sqrt(1 - abar_i)``.
     """
     if parameterization not in ("eps", "x0", "v"):
         raise ValueError(f"unknown parameterization {parameterization!r}")
@@ -174,6 +187,18 @@ def cfg_sample(
             eps = (y - sched.sqrt_alphas_cumprod[i] * eps) / sched.sqrt_one_minus_alphas_cumprod[i]
         elif parameterization == "v":
             eps = sched.sqrt_one_minus_alphas_cumprod[i] * y + sched.sqrt_alphas_cumprod[i] * eps
+        if guidance_fn is not None:
+            sq1m = sched.sqrt_one_minus_alphas_cumprod[i]
+            x0_hat = (y - sq1m * eps) / sched.sqrt_alphas_cumprod[i]
+            with torch.enable_grad():
+                x = x0_hat.detach().requires_grad_(True)
+                (g,) = torch.autograd.grad(guidance_fn(x).sum(), x)
+            if guidance_relative:
+                g = g / (torch.linalg.norm(g, dim=1, keepdim=True) + 1e-8)
+                eps_rms = torch.sqrt((eps ** 2).mean(dim=1, keepdim=True))
+                eps = eps + guidance_scale * eps_rms * g
+            else:
+                eps = eps + guidance_scale * sq1m * g
         z = step_noise[s] if i > 1 else None
         y = _reverse_step(sched, y, i, eps, z, T, renorm_steps, valid_mask)
         if record_trace:

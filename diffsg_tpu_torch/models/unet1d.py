@@ -231,10 +231,19 @@ class UNet1D(nn.Module):
         return self.final(swish(self.norm(x)))
 
 
-def unet_msr(M: int = 3, proj_dim: int = 128, dims=(64, 32, 16, 8)) -> UNet1D:
-    """MSR config; M=3 or 80."""
-    return UNet1D(input_dim=M, proj_dim=proj_dim, cond_dim=M, dims=tuple(dims),
+def unet_msr(M: int = 3, proj_dim: int = 128, dims=(64, 32, 16, 8),
+             cond_extra: int = 0) -> UNet1D:
+    """MSR config; M=3 or 80. ``cond_extra`` widens the condition (+1 for
+    the power-budget feature of ``msr_budget``)."""
+    return UNet1D(input_dim=M, proj_dim=proj_dim, cond_dim=M + cond_extra, dims=tuple(dims),
                   is_attn=(False,) * len(dims), middle_attn=False, n_blocks=2)
+
+
+def unet_co(node_num: int = 3) -> UNet1D:
+    """CO config: proj 64, dims (64, 32, 16, 8), three blocks a level
+    (``n_blocks=3``), condition ``3N`` derived per-node features."""
+    return UNet1D(input_dim=node_num, proj_dim=64, cond_dim=3 * node_num,
+                  dims=(64, 32, 16, 8), is_attn=(False,) * 4, middle_attn=False, n_blocks=3)
 
 
 def unet_nu(K: int = 3, cond_extra: int = 0, proj_dim: int = 32,

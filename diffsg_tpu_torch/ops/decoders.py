@@ -1,10 +1,10 @@
 """Solution decoders: raw sampler output -> feasible solutions.
 
-Counterpart of ``diffsg_tpu/ops/decoders.py`` (MSR and NU). The MSR decoder
-and ``nu_decode`` normalize by the min and max of the **whole batch
-tensor**, not per row, as the published method does; ``valid_mask`` (B, 1)
-restricts those reductions to real rows. ``nu_direct_decode`` is strictly
-per row.
+Counterpart of ``diffsg_tpu/ops/decoders.py``. The MSR decoder and
+``nu_decode`` normalize by the min and max of the **whole batch tensor**,
+not per row, as the published method does; ``valid_mask`` (B, 1) restricts
+those reductions to real rows. ``co_decode`` and ``nu_direct_decode`` are
+strictly per row.
 
 Per-column constants (the area, ``y_shift``) are applied as Python numbers,
 one column at a time, so that no decoder copies data from the host: a
@@ -55,6 +55,14 @@ def msr_simplex_project(Y: torch.Tensor, W: Union[float, torch.Tensor]) -> torch
     rho = (s > tau_k).sum(dim=1) - 1
     tau = torch.gather(tau_k, 1, rho[:, None])
     return torch.clamp(Y - tau, min=0.0)
+
+
+def co_decode(Y: torch.Tensor) -> torch.Tensor:
+    """Per-row softmax; rows that lie entirely below -10 decode to all zeros
+    (the "process everything locally" sentinel)."""
+    dec = torch.softmax(Y, dim=1)
+    all_local = (Y < -10.0).all(dim=1, keepdim=True)
+    return torch.where(all_local, torch.zeros_like(dec), dec)
 
 
 def nu_direct_decode(Y: torch.Tensor, width: float, height: float, P_sum: float,

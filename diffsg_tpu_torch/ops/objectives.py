@@ -1,9 +1,35 @@
-"""Objective evaluators. Counterpart of ``diffsg_tpu/ops/objectives.py``
-(MSR and NU)."""
+"""Objective evaluators. Counterpart of ``diffsg_tpu/ops/objectives.py``.
+
+Each is plain differentiable tensor code: refinement (``ops/refine.py``)
+and objective guidance (``cfg_sample(guidance_fn=...)``) take their
+gradients with ``torch.autograd``.
+"""
 
 from __future__ import annotations
 
 import torch
+
+def co_cost(X: torch.Tensor, Y: torch.Tensor, decision_threshold: float = 0.1) -> torch.Tensor:
+    """Overall offloading cost per sample; X (B, 3N) derived features,
+    interleaved per node as [local, offload transition, ideal offload
+    execution]; Y (B, N) resource shares -> (B,).
+
+    The offload decision is D = (Y > 0.1). Shares of local nodes are zeroed
+    and the residual ``1 - sum Y`` is spread equally over the offloaded
+    nodes; an all-local row divides by 1e-5 instead of 0, and local nodes
+    get the share 1e-5 (multiplied by D = 0). The cost is
+    ``sum_i (1 - D_i) local_i + D_i (transition_i + execution_i / Y_i)``.
+    """
+    D = (Y > decision_threshold).to(Y.dtype)
+    Yz = Y * D
+    Y_sum = Yz.sum(dim=1)
+    D_sum = D.sum(dim=1)
+    D_sum = torch.where(D_sum == 0, torch.full_like(D_sum, 1e-5), D_sum)
+    Y_diff = ((1.0 - Y_sum) / D_sum)[:, None]
+    Yr = torch.where(D == 1, Yz + Y_diff, torch.full_like(Yz, 1e-5))
+    local, transition, execution = X[:, 0::3], X[:, 1::3], X[:, 2::3]
+    return ((1.0 - D) * local + D * (transition + execution / Yr)).sum(dim=1)
+
 
 # NU channel model (the JAX package's ``ops/objectives.py`` constants).
 NU_SIGMA_SQ = 110.0

@@ -2,8 +2,9 @@
 
 Counterpart of ``diffsg_tpu/serve.py`` on one device: ``suggest_buckets``,
 and ``Solver`` with batch buckets and a validity mask, the CFG-DDPM and DDIM
-samplers, best-of-N with omega mixtures, ``warmup`` and ``solve_chunked``.
-Not ported: the device mesh and refinement (``mesh``, ``refine_iters``).
+samplers, best-of-N with omega mixtures, projected-gradient refinement
+after the decode (``refine_iters``), ``warmup`` and ``solve_chunked``. Not
+ported: the device mesh (``mesh``).
 
 Where JAX compiles one program per bucket, the port captures one CUDA graph
 per bucket and configuration (``warmup``, or the first ``solve`` of a
@@ -21,6 +22,16 @@ Example:
     nu = Solver.from_checkpoint("ckpts/ddpm_nu_3u_aug32_s8c", task="nu_direct",
                                 backend="mega")
     S = nu.solve(X_users, omega=0.125, sampler="ddim", n_steps=3)   # (B, 5)
+
+    # CO: ckpts/ddpm_co records no dataset config; these are the values of
+    # its training set (datasets/3nodes_50000samples_new.csv).
+    co = Solver.from_checkpoint("ckpts/ddpm_co", task="co", dataset_config={
+        "node_num": 3, "scaler_min": 0.001618138251306864,
+        "scaler_max": 9.996995111158247})
+    Y = co.solve(X_features)             # (B, 3) shares, omega 500
+
+    # Hybrid: 50 projected-gradient steps on the exact rate after the decode.
+    hybrid = Solver.from_checkpoint("ckpts/ddpm_msr_3c_T100", task="msr", refine_iters=50)
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ from .models.unet1d import UNet1D
 from .models.unet1d_fused import unet_apply_fn
 from .ops import mega, resblock
 from .tasks import TASKS
-from .tasks.base import Task, select_best
+from .tasks.base import Task, refine_solutions, select_best
 from .utils.checkpoint import load_checkpoint
 from .utils.params import params_from_jax
 
@@ -73,6 +84,8 @@ class _Spec(NamedTuple):
     skip: bool                   # every omega 0: the conditional half only
     eta: float
     renorm_steps: Optional[int]
+    refine_iters: int            # projected-gradient steps after the decode
+    refine_step: Optional[float]
 
 
 class _Inputs(NamedTuple):
@@ -114,11 +127,19 @@ class Solver:
     n real rows only; pad rows get zeros. So a real row's noise does not
     depend on the bucket (``torch.randn`` of (b, ...) is not row-prefix
     stable).
+
+    ``refine_iters`` > 0 polishes every decoded candidate with that many
+    projected-gradient steps on the task objective
+    (``tasks.base.refine_solutions``, first step ``refine_step`` or the
+    task's), inside the same program, so a bucket's graph captures it. It is
+    strictly per row, so padding stays exact; the first solve raises
+    ValueError for a task without a projection (CO).
     """
 
     def __init__(self, task: Task, model: UNet1D, sched: Schedule, config: Dict,
                  backend: str = "fused", buckets: Optional[Sequence[int]] = None,
-                 graphs: bool = True):
+                 graphs: bool = True, refine_iters: int = 0,
+                 refine_step: Optional[float] = None):
         self.task = task
         self.model = model
         self.sched = sched
@@ -126,6 +147,8 @@ class Solver:
         self.device = sched.betas.device
         self.buckets = sorted(int(b) for b in buckets) if buckets else None
         self.graphs = graphs
+        self.refine_iters = int(refine_iters)
+        self.refine_step = refine_step
         self._apply = unet_apply_fn(model, backend)
         self._D = task.data_dim(self.config)
         self._C = task.cond_dim(self.config)
@@ -137,8 +160,11 @@ class Solver:
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, task: str = "msr", device: DeviceLike = "cuda",
                         backend: str = "fused", dataset_config: Optional[Dict] = None,
-                        buckets: Optional[Sequence[int]] = None) -> "Solver":
-        """Load a ``diffsg_tpu.npz.v1`` checkpoint onto ``device``."""
+                        buckets: Optional[Sequence[int]] = None, **kw) -> "Solver":
+        """Load a ``diffsg_tpu.npz.v1`` checkpoint onto ``device``; ``kw``
+        goes to the constructor (``graphs``, ``refine_iters``,
+        ``refine_step``). ``dataset_config`` updates the checkpoint's
+        recorded one."""
         dev = resolve_device(device)
         ck = load_checkpoint(ckpt_dir, device=dev)
         config = dict(ck["metadata"].get("dataset_config") or {})
@@ -146,12 +172,12 @@ class Solver:
         t = TASKS[task]
         model = t.build_model(config)
         model.load_state_dict(params_from_jax(ck["params"]), strict=True)
-        return cls(t, model.to(dev).eval(), ck["sched"], config, backend, buckets)
+        return cls(t, model.to(dev).eval(), ck["sched"], config, backend, buckets, **kw)
 
     @classmethod
     def from_torch_checkpoint(cls, pt_path: str, task: str, dataset_config: Dict,
                               device: DeviceLike = "cuda", backend: str = "fused",
-                              buckets: Optional[Sequence[int]] = None) -> "Solver":
+                              buckets: Optional[Sequence[int]] = None, **kw) -> "Solver":
         """Load a reference torch DDPM checkpoint (``.pt``): its live
         ``model.*`` weights, not the EMA copy."""
         from .utils.torch_import import ddpm_from_torch
@@ -161,7 +187,7 @@ class Solver:
         t = TASKS[task]
         model = t.build_model(dataset_config)
         model.load_state_dict(state, strict=True)
-        return cls(t, model.to(dev).eval(), sched, dataset_config, backend, buckets)
+        return cls(t, model.to(dev).eval(), sched, dataset_config, backend, buckets, **kw)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets or ():
@@ -240,7 +266,8 @@ class Solver:
         n = X.shape[0]
         b = self._bucket(n)
         spec = _Spec(b, sampler, (n_steps or self.sched.T) if sampler == "ddim" else None,
-                     omegas.size, bool(np.all(omegas == 0.0)), float(eta), renorm_steps)
+                     omegas.size, bool(np.all(omegas == 0.0)), float(eta), renorm_steps,
+                     self.refine_iters, self.refine_step)
         self.programs.add(spec)
         Xp = np.concatenate([X, np.repeat(X[-1:], b - n, axis=0)]) if b > n else X
         host = {"cond": Xp,
@@ -296,7 +323,8 @@ class Solver:
             inputs.noise[k, :n].normal_(generator=gen)
 
     def _program(self, spec: _Spec, inputs: _Inputs) -> torch.Tensor:
-        """Sample, decode and (best-of) select: the work a graph captures."""
+        """Sample, decode, refine and (best-of) select: the work a graph
+        captures."""
         decs, scores = [], []
         for k in range(spec.candidates):
             y0 = self._sample(spec, inputs, k)
@@ -305,6 +333,9 @@ class Solver:
                 dec = self.task.decode_with_x(y0, inputs.cond_unnorm, self.config, **kw)
             else:
                 dec = self.task.decode(y0, self.config, **kw)
+            if spec.refine_iters > 0:
+                dec = refine_solutions(self.task, dec, inputs.cond_unnorm, self.config,
+                                       spec.refine_iters, spec.refine_step)
             if spec.candidates == 1:
                 return dec
             decs.append(dec)
@@ -327,9 +358,11 @@ class Solver:
 
     def _capture(self, spec: _Spec, host: Dict, gen: torch.Generator, n: int) -> _Graph:
         """Capture ``spec``'s program as a CUDA graph on inputs that hold
-        this request. The program runs once eagerly first, on a side stream
+        this request. The program runs eagerly first, on a side stream
         (cuBLAS and the kernels' first-launch set-up happen outside the
-        capture), and those launches count. Launches recorded during the
+        capture; three times where it refines, so that autograd's backward
+        is warm too, as PyTorch's whole-network capture recipe does), and
+        those launches count. Launches recorded during the
         capture do not run, so the wrappers keep them out of ``LAUNCHES``;
         their number is added per replay instead."""
         inputs = self._alloc(spec, masked=True)
@@ -338,7 +371,8 @@ class Solver:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._program(spec, inputs)
+            for _ in range(3 if spec.refine_iters > 0 else 1):
+                self._program(spec, inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = (resblock.CAPTURED, mega.CAPTURED)

@@ -1,8 +1,8 @@
 """The task interface as the serving path sees it.
 
 Counterpart of the part of ``diffsg_tpu/tasks/base.py`` that serving reads:
-``Task`` and ``select_best``. ``tasks.msr`` and ``tasks.nu`` provide the
-instances.
+``Task``, ``refine_solutions`` and ``select_best``. ``tasks.msr``,
+``tasks.co`` and ``tasks.nu`` provide the instances.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..models.unet1d import UNet1D
+from ..ops.refine import projected_refine
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +29,16 @@ class Task:
     X_unnorm, config, valid_mask=None)``: an optional decoder that also sees
     the unnormalized conditions; where given, the sampling paths use it in
     place of ``decode``.
+
+    ``extra_metrics(Y_dec, Y_true, pred, true, config)``: optional
+    task-specific metrics (numpy in, floats out). ``project(Y_dec,
+    X_unnorm, config)``: an optional Euclidean feasibility projection in
+    physical units (the identity on feasible points); where given,
+    :func:`refine_solutions` can polish the decoded solutions, with a first
+    step of ``refine_step`` and per-column step scales
+    ``refine_precond(config)`` (D,) where given. CO leaves ``project``
+    unset: given the decision, its allocation is already the closed-form
+    optimum.
     """
 
     name: str
@@ -41,6 +52,33 @@ class Task:
     higher_is_better: bool = True
     default_omega: float = 500.0
     decode_with_x: Optional[Callable[..., torch.Tensor]] = None
+    extra_metrics: Optional[Callable[..., Dict[str, float]]] = None
+    project: Optional[Callable[[torch.Tensor, torch.Tensor, Dict], torch.Tensor]] = None
+    refine_step: float = 0.1
+    refine_precond: Optional[Callable[[Dict], np.ndarray]] = None
+
+
+def refine_solutions(task: Task, Y_dec: torch.Tensor, X_unnorm: torch.Tensor, config: Dict,
+                     iters: int, step: Optional[float] = None) -> torch.Tensor:
+    """Polish decoded solutions with ``iters`` projected-gradient steps on
+    the exact task objective (``ops.refine.projected_refine``); ``step``
+    defaults to the task's ``refine_step``. Strictly per row, with no host
+    synchronization: it can be captured in a CUDA graph. Raises ValueError
+    for a task without a feasibility projection (CO)."""
+    if task.project is None:
+        raise ValueError(
+            f"task {task.name!r} has no feasibility projection; projected-gradient "
+            "refinement is unsupported (CO's continuous allocation is already "
+            "closed-form optimal given the decision)")
+    precond = None if task.refine_precond is None else task.refine_precond(config)
+    # Outside inference mode, on copies: autograd must be able to record
+    # the objective, and it cannot save inference tensors.
+    with torch.inference_mode(False):
+        Y, X = Y_dec.clone(), X_unnorm.clone()
+        return projected_refine(
+            lambda y: task.objective(y, X, config), lambda y: task.project(y, X, config),
+            Y, iters, task.refine_step if step is None else step,
+            higher_is_better=task.higher_is_better, precond=precond)
 
 
 def select_best(decs: torch.Tensor, scores: torch.Tensor, higher_is_better: bool) -> torch.Tensor:

@@ -1,17 +1,15 @@
 """Per-step decode and layout of a captured denoise trajectory.
 
-Counterpart of ``diffsg_tpu/utils/trace.py`` for the MSR and NU tasks:
-``cfg_sample(..., record_trace=True)`` returns a ``SampleTrace`` of (T, B, D)
-tensors, and this module decodes it as the reference's trajectory scripts
-do:
+Counterpart of ``diffsg_tpu/utils/trace.py``: ``cfg_sample(...,
+record_trace=True)`` returns a ``SampleTrace`` of (T, B, D) tensors, and
+this module decodes it as the reference's trajectory scripts do:
 
 * MSR: the first 3 recorded steps with a plain row softmax, later steps
   with the full decoder (``msr_decode``, without the W scale);
+* CO: every step with ``co_decode``;
 * NU: every step with ``nu_decode``;
 * layout: one row per sample, ``T * D`` wide, step-major blocks
   ``[step0 dims..., step1 dims..., ...]``.
-
-CO's decoder is not ported yet, so ``"co"`` raises.
 """
 
 from __future__ import annotations
@@ -22,7 +20,7 @@ import numpy as np
 import torch
 
 from ..diffusion.ddpm import SampleTrace
-from ..ops.decoders import msr_decode, nu_decode
+from ..ops.decoders import co_decode, msr_decode, nu_decode
 
 
 def _rows(arr: torch.Tensor) -> np.ndarray:
@@ -41,7 +39,7 @@ def decode_trace(task_name: str, trace: SampleTrace, config: Dict) -> np.ndarray
         decoded = [nu_decode(ys[i], config["width"], config["height"], config["P_sum"])
                    for i in range(ys.shape[0])]
     elif task_name == "co":
-        raise ValueError("decode_trace: the co decoder is not ported yet")
+        decoded = [co_decode(ys[i]) for i in range(ys.shape[0])]
     else:
         raise ValueError(f"unknown task {task_name!r}")
     return _rows(torch.stack(decoded))

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from diffsg_tpu_torch.models import UNet1D, unet_msr, unet_nu
+from diffsg_tpu_torch.models import UNet1D, unet_co, unet_forward_fused, unet_msr, unet_nu
 from diffsg_tpu_torch.ops import mega, resblock
 from diffsg_tpu_torch.ops.mega import (launch_mega, mega_inputs as mega_kernel_inputs,
                                        pack_params, unet_forward_mega,
@@ -168,11 +168,29 @@ MEGA_CASES = [
     ("odd", 1000, torch.bfloat16, 0),
     ("odd", 1000, torch.bfloat16, 128),
     ("odd", 37, torch.float32, 0),
+    ("co", 4096, torch.float32, 0),
+    ("co", 1000, torch.float32, 32),
+    ("co", 4096, torch.bfloat16, 0),
+    ("co", 1000, torch.bfloat16, 128),
+    ("nu_geo", 4096, torch.float32, 16),
+    ("nu_geo", 4096, torch.bfloat16, 0),
+    ("nu_geo", 1000, torch.bfloat16, 32),
+    ("msr_budget", 4096, torch.float32, 0),
+    ("msr_budget", 1000, torch.bfloat16, 0),
+    ("nu_budget", 65536, torch.float32, 0),
+    ("nu_budget", 1000, torch.float32, 16),
+    ("nu_budget", 1000, torch.bfloat16, 0),
 ]
 NETS = {"msr": lambda: unet_msr(3), "nu": lambda: unet_nu(3),
         "p256": lambda: UNet1D(input_dim=80, proj_dim=256, cond_dim=81,
                                dims=(256, 128, 64, 32), n_blocks=2),
-        "odd": lambda: UNet1D(input_dim=3, proj_dim=20, cond_dim=4, dims=(12, 8), n_blocks=2)}
+        "odd": lambda: UNet1D(input_dim=3, proj_dim=20, cond_dim=4, dims=(12, 8), n_blocks=2),
+        # The shapes of ckpts/ddpm_co (n_blocks=3: 37 blocks, 20 skips),
+        # ddpm_nu_geo_x0f, ddpm_msr_budget and ddpm_nu_budget.
+        "co": lambda: unet_co(3),
+        "nu_geo": lambda: unet_nu(3, cond_extra=3, proj_dim=64, dims=(64, 32, 16)),
+        "msr_budget": lambda: unet_msr(3, cond_extra=1),
+        "nu_budget": lambda: unet_nu(3, cond_extra=1)}
 
 
 def mega_inputs(net, rows, seed, device="cpu"):
@@ -333,3 +351,73 @@ def test_cuda_bucket_invariance_and_best_of():
     rate = bucketed.task.objective
     assert bool((rate(torch.from_numpy(best), users, {}) >=
                  rate(torch.from_numpy(one), users, {})).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,blocks", [("co", 37), ("nu_geo", 22), ("msr_budget", 27)])
+def test_cuda_fused_forward_matches_plain(net, blocks):
+    """The whole forward with every residual block through the kernel, one
+    launch a block, against the module's own forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, inputs = mega_inputs(net, 4096, seed=3, device="cuda")
+    before = resblock.LAUNCHES
+    with torch.no_grad():
+        out = unet_forward_fused(model, *inputs)
+        torch.cuda.synchronize()
+        ref = model(*inputs)
+    assert resblock.LAUNCHES == before + blocks
+    # The forward tolerance: 1e-4 of the output's magnitude.
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ckpt,task,kw", [
+    ("ddpm_nu_geo_x0f", "nu_geo", {"sampler": "ddim", "n_steps": 3}),
+    ("ddpm_msr_3c_T100", "msr", {}),
+])
+def test_cuda_refine_graph_replay_equals_eager(ckpt, task, kw):
+    """``refine_iters`` runs inside the bucket's graph: replays equal the
+    same program run eagerly bit for bit, and no refined row is worse than
+    its unrefined decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from diffsg_tpu_torch.serve import Solver
+
+    graphed = _serve_solver(ckpt, task, "mega", buckets=(64,), refine_iters=10)
+    eager = Solver(graphed.task, graphed.model, graphed.sched, graphed.config, backend="mega",
+                   buckets=(64,), graphs=False, refine_iters=10)
+    unrefined = Solver(graphed.task, graphed.model, graphed.sched, graphed.config,
+                       backend="mega", buckets=(64,))
+    C = graphed.task.cond_dim(graphed.config)
+    X = np.random.default_rng(2).uniform(0.3, 1, (50, C)).astype(np.float32)
+    first = graphed.solve(X, seed=1, **kw)
+    assert len(graphed._graphs) == 1
+    np.testing.assert_array_equal(first, graphed.solve(X, seed=1, **kw))
+    np.testing.assert_array_equal(first, eager.solve(X, seed=1, **kw))
+    base = unrefined.solve(X, seed=1, **kw)
+    Xu = torch.tensor(graphed.task.unnormalize_x(X, graphed.config), dtype=torch.float32)
+    score = graphed.task.objective
+    refined_q = score(torch.from_numpy(first), Xu, graphed.config)
+    base_q = score(torch.from_numpy(base), Xu, graphed.config)
+    assert bool((refined_q >= base_q - 1e-6 * base_q.abs()).all())
+    assert bool((refined_q > base_q).any())
+
+
+@pytest.mark.cuda
+def test_cuda_co_ranked_decode_is_stable_on_ties():
+    """Tied entries rank in index order on the card too (``argsort`` with
+    ``stable=True``), so the card decodes as the CPU does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diffsg_tpu_torch.baselines import co_ranked_decode
+
+    rng = np.random.default_rng(4)
+    X = torch.tensor(rng.uniform(0.01, 8.0, (4096, 9)), dtype=torch.float32)
+    Y = torch.tensor(rng.integers(-2, 3, (4096, 3)), dtype=torch.float32) * 5000.0
+    order = torch.argsort(-Y.cuda(), dim=1, stable=True).cpu()
+    torch.testing.assert_close(order, torch.argsort(-Y, dim=1, stable=True), rtol=0, atol=0)
+    got = co_ranked_decode(Y.cuda(), X.cuda()).cpu()
+    torch.testing.assert_close(got, co_ranked_decode(Y, X), rtol=0, atol=1e-6)

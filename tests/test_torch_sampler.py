@@ -118,14 +118,6 @@ def test_waterfilling_matches_jax():
     np.testing.assert_allclose(got.sum(axis=1), 10.0, rtol=1e-6)
 
 
-@pytest.mark.parametrize("option", ["guidance_scale", "guidance_fn"])
-def test_unported_options_raise(both, option):
-    _, sched, model, _ = both
-    with pytest.raises(TypeError, match=option):
-        cfg_sample(unet_apply_fn(model, "fused"), sched, torch.zeros(2, 3), 0.0, 3,
-                   generator=torch.Generator().manual_seed(0), **{option: None})
-
-
 def test_compute_dtype_bf16_mega_matches_jax(both):
     """``compute_dtype=bfloat16`` through the mega backend, on the MSR-3c T=100
     checkpoint over the last 4 betas of its schedule (the large ones, where

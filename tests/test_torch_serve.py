@@ -52,7 +52,7 @@ def test_plain_and_fused_backends_agree(solver):
                                rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("option", ["mesh", "refine_iters"])
+@pytest.mark.parametrize("option", ["mesh"])
 def test_unported_solve_options_raise(solver, option):
     with pytest.raises(TypeError, match=option):
         solver.solve(_conditions(4), **{option: 2})

@@ -25,12 +25,14 @@ from diffsg_tpu_torch.utils.trace import decode_trace, eps_trace
 torch.set_num_threads(1)
 
 CKPTS = pathlib.Path(__file__).resolve().parent.parent / "ckpts"
-# Both T=20: ckpts/ddpm_msr_3c (M=3, W=10) and ckpts/ddpm_nu_3u (K=3).
+# All T=20: ckpts/ddpm_msr_3c (M=3, W=10), ckpts/ddpm_nu_3u (K=3) and
+# ckpts/ddpm_co (N=3, n_blocks=3).
 CASES = {"msr": ("ddpm_msr_3c", {"M": 3, "W": 10.0}, 3, 3),
-         "nu": ("ddpm_nu_3u", {"K": 3, "P_sum": 18.0, "width": 400.0, "height": 400.0}, 5, 6)}
+         "nu": ("ddpm_nu_3u", {"K": 3, "P_sum": 18.0, "width": 400.0, "height": 400.0}, 5, 6),
+         "co": ("ddpm_co", {"node_num": 3}, 3, 9)}
 
 
-@pytest.mark.parametrize("task", ["msr", "nu"])
+@pytest.mark.parametrize("task", ["msr", "nu", "co"])
 def test_record_trace_and_decoders_match_jax(task):
     ckpt, cfg, D, C = CASES[task]
     jck = jax_load_checkpoint(str(CKPTS / ckpt))
@@ -65,9 +67,7 @@ def test_record_trace_and_decoders_match_jax(task):
     dec, jdec = decode_trace(task, trace, cfg), np.asarray(jax_decode_trace(task, jtrace, cfg))
     assert dec.shape == jdec.shape == (B, T * D)
     # Decoded: softmax and min-max of states held to 1e-5 of their scale
-    # (NU positions on a 400 m side, to 1e-2).
+    # (NU positions on a 400 m side, to 1e-2); CO's softmax on every step.
     np.testing.assert_allclose(dec, jdec, rtol=0, atol=1e-2 if task == "nu" else 1e-5)
     eps, jeps = eps_trace(trace), np.asarray(jax_eps_trace(jtrace))
     np.testing.assert_allclose(eps, jeps, rtol=0, atol=1e-5 * np.abs(jeps).max())
-    with pytest.raises(ValueError, match="co"):
-        decode_trace("co", trace, cfg)
