@@ -33,7 +33,19 @@ their answers:
   conditioned NU tasks at B = 524,288 (``nu_budget`` at 30 mW, ``nu_geo`` on
   fields of 200, 400 and 600 m) and 50 refinement steps inside the bucket's
   graph (MSR-3c, ``nu_geo``): each eagerly and from the graph, feasible row
-  by row, and held to the JAX package's mean quality (``JAX_QUALITY``).
+  by row, and held to the JAX package's mean quality (``JAX_QUALITY``);
+* the multi-task faces, eagerly and from their buckets' graphs, each held to
+  its JAX constant: ``ckpts/ddpm_multi``'s MSR-3c (B = 8,192), CO (32,768)
+  and budget-conditioned NU (65,536) faces on ``fused`` and ``mega``
+  (``serve_multi``), ``ddpm_multi_geo``'s geometry-conditioned NU face on
+  mixed fields (``serve_multi_geo``), and the proj-256 ``ddpm_multi_80``'s
+  MSR-80c (20 W) and MSR-8c (10 W) faces at B = 8,192 on ``plain``,
+  ``fused`` and ``mega`` in turns, float32, with their forward times
+  (``serve_multi_80``);
+* ``tasks.base.evaluate`` on the repository's data (``eval``): the CSVs of
+  ``datasets/`` remade where missing (a checkout has none), then the CO
+  split (15,000 rows) and the three geometry splits, each metric held to
+  the JAX package's ``evaluate`` (``EVAL_JAX``).
 
 The residual-block kernel is held to its plain version at every block
 shape of the MSR-3c forward (16,384 rows) and of the CO forward (65,536
@@ -44,8 +56,10 @@ widest net the repository ships: 512 -> 256 with a shortcut and 256 -> 256,
 at 16,384 rows and, for 512 -> 256, at a ragged 1,000 rows with a full
 t_proj; each case at every tile height its path is built for. The
 whole-UNet kernel is held to its plain version on MSR-3c, NU, that net, the
-CO net and the nets of ``ckpts/ddpm_nu_geo_x0f``, ``ddpm_msr_budget`` and
-``ddpm_nu_budget``.
+CO net and the nets of ``ckpts/ddpm_nu_geo_x0f``, ``ddpm_msr_budget``,
+``ddpm_nu_budget``, ``ddpm_multi`` and ``ddpm_multi_80``; the
+residual-block kernel also at every block shape of ``ddpm_multi_80`` with
+its own weights (``ddpm_multi``'s are MSR-3c's shapes).
 
 Every phase prints one JSON line with the seconds since start; any failure
 raises and exits non-zero. The last three lines are the ``kernels``
@@ -55,6 +69,7 @@ summary, the card's name and power limit as ``nvidia-smi`` gives them, and
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -78,6 +93,7 @@ SERVE_B = 8_192
 NU_B = 524_288         # the JAX package's production NU batch (bench.py)
 CO_B = 32_768          # bench.py:_per_task_rows' CO batch
 CO_ROWS = 2 * CO_B
+MULTI_NU_B = 65_536    # the multi-task NU faces' batch
 NU_OMEGA, NU_STEPS = 0.125, 3
 # f32, TF32 off, summation order only. The deepest sums (512 terms, the
 # proj-256 blocks' input) of products of O(1) activations and weights of
@@ -135,14 +151,28 @@ QUALITY_SPECS = {
                    rows=("nu_geo", 4096)),
     "nu_geo_refine": dict(ckpt="ddpm_nu_geo_x0f", task="nu_geo", sampler=("ddim", 3),
                           omega=0.5, rows=("nu_geo", 4096), refine=50),
+    # The faces of the multi-task nets (DDPM T=20, x0): ckpts/ddpm_multi's
+    # MSR-3c, CO and budget-conditioned NU (at 30 mW), ddpm_multi_geo's
+    # geometry-conditioned NU, and the proj-256 ddpm_multi_80's MSR-80c at
+    # 20 W and MSR-8c at 10 W.
+    "multi_msr": dict(ckpt="ddpm_multi", task="multi_msr", omega=0.5, rows=("msr", 1024)),
+    "multi_co": dict(ckpt="ddpm_multi", task="multi_co", omega=0.5, rows=("co",)),
+    "multi_nu": dict(ckpt="ddpm_multi", task="multi_nu", config={"P_sum": 30.0}, omega=0.0,
+                     rows=("nu_budget", 4096, 30.0)),
+    "multi_nu_geo": dict(ckpt="ddpm_multi_geo", task="multi_nu_geo", omega=0.0,
+                         rows=("nu_geo", 4096)),
+    "multi_msr80": dict(ckpt="ddpm_multi_80", task="multi_msr80", config={"W": 20.0},
+                        omega=0.5, rows=("msr", 512, 20.0, 80)),
+    "multi_msr8": dict(ckpt="ddpm_multi_80", task="multi_msr8", omega=0.5,
+                       rows=("msr", 512, 10.0, 8)),
 }
 # The JAX package's mean quality per spec, noise seed 0, flax forward on the
 # CPU, and the tolerance: 4 standard errors of the difference between two
 # JAX draws' means (seeds 0 and 1, from their per-row differences), but no
 # less than 1e-6 of the mean (8 float32 ulps): where every draw reaches the
-# optimum (msr_refine) the spread is float rounding alone. Computed and held
-# by tests/test_torch_co.py, test_torch_tasks.py and test_torch_refine.py
-# (test_*_vs_jax_constants).
+# optimum (msr_refine, multi_msr, multi_msr8) the spread is float rounding
+# alone. Computed and held by tests/test_torch_co.py, test_torch_tasks.py,
+# test_torch_refine.py and test_torch_multi.py (test_*_vs_jax_constants).
 JAX_QUALITY = {
     "co": (1.0895304273581132, 0.03838794270798506),
     "co_ranked": (1.0343122543999925, 0.0027104437903954616),
@@ -155,6 +185,12 @@ JAX_QUALITY = {
     "nu_budget": (0.000713795230616654, 7.736737432380983e-08),
     "nu_geo": (0.0005522479747419595, 1.4223689930762734e-07),
     "nu_geo_refine": (0.0007602846748611114, 1.4730445098868318e-06),
+    "multi_msr": (0.9999991727527231, 9.999991727527232e-07),
+    "multi_co": (1.000234799721511, 0.00022960730411175203),
+    "multi_nu": (0.0007138378908067011, 2.4706348815265537e-08),
+    "multi_nu_geo": (0.000554529605665266, 2.2862253590615736e-08),
+    "multi_msr80": (0.999599517788738, 7.5049514129841494e-06),
+    "multi_msr8": (0.999994060723111, 9.99994060723111e-07),
 }
 # On a spec's own inputs and noise the port's mean sits far inside that
 # tolerance: guidance and refinement's accept/reject part a few rows between
@@ -163,6 +199,65 @@ JAX_QUALITY = {
 # co 0.023, msr_refine 0.018, the rest below 0.002). Held within 0.15, four
 # times that: on CO, 0.53% of the mean cost ratio.
 SAME_NOISE_SHARE = 0.15
+
+# -- tasks.base.evaluate on the repository's data --------------------------------
+# The CSVs of datasets/ (not committed; remade from their recipes by
+# diffsg_tpu_torch.data.ensure_datasets) and the SHA-256 of the files the
+# constants below were computed on.
+DATASET_SHA256 = {
+    "3nodes_50000samples_new.csv":
+        "e3b09368ff416b5c140603ba3ba42e978a3661265da5e23fba1fabada9d1bd99",
+    "3u_geo200x200_12mW_500samples.csv":
+        "1437553b497cc7e2a16b29b8c26859c931c8efb670f696da48a9ed88608be604",
+    "3u_geo480x360_21mW_1000samples.csv":
+        "42d4527c0ec96f252bc6921cc9c26466bad9f307c07b45334970806b0247d27e",
+    "3u_geo600x600_33mW_500samples.csv":
+        "5a40ac0be2d7c261189b518415181590424d3f775ab6f042989a26ed9ebd7b9d",
+}
+
+
+def _geo_eval(csv, width, height, P_sum, **kw):
+    return dict(ckpt="ddpm_multi_geo", task="multi_nu_geo", omega=0.0, csv=csv, seeds=64,
+                load_kw={"width": width, "height": height, "P_sum": P_sum}, **kw)
+
+
+# The rows of tools/headline.py:357-440 that the repository's own files can
+# reproduce: each face's test split through its task's loader (load_kw) and
+# the multi checkpoint's merge_multi_config, at the row's omega; and a
+# best-of-4 on the smallest split. ``seeds``: the JAX draws behind its
+# constants, enough that rows times draws reach 9,600 or more (below).
+EVAL_SPECS = {
+    "multi_co": dict(ckpt="ddpm_multi", task="multi_co", csv="3nodes_50000samples_new.csv",
+                     omega=0.5, seeds=2),
+    "multi_nu_geo_480x360": _geo_eval("3u_geo480x360_21mW_1000samples.csv", 480.0, 360.0, 21.0),
+    "multi_nu_geo_600x600": _geo_eval("3u_geo600x600_33mW_500samples.csv", 600.0, 600.0, 33.0),
+    "multi_nu_geo_200x200": _geo_eval("3u_geo200x200_12mW_500samples.csv", 200.0, 200.0, 12.0),
+    "multi_nu_geo_200x200_best_of_4": _geo_eval("3u_geo200x200_12mW_500samples.csv", 200.0,
+                                                200.0, 12.0, best_of=4),
+}
+# The JAX package's evaluate per spec and metric: the mean over its seeds 0
+# to K-1 (K the spec's ``seeds``; flax forward on the CPU, its own loaders)
+# and the tolerance: 4 standard errors of one draw's deviation from that
+# mean, from the rows' seed-to-seed variances (at least 1e-6 of the mean;
+# one row for a count). On the 150- to 300-row geo splits a few rows fail
+# rarely and badly, and two draws underestimate the spread 2.6-3.4x
+# (PERF.md §6, PR 11), so those constants take 64 draws. Computed and held
+# by tests/test_torch_eval.py::test_evaluate_vs_jax_constants.
+EVAL_JAX = {
+    "multi_co": {"exceeded_ratio": (1.0002288818359375, 8.584676794699987e-05),
+                 "avg_diff": (0.00043527173693291843, 0.00016325196392797327),
+                 "decision_accuracy": (0.9822333333333335, 0.004554850894010327),
+                 "terrible_count": (0.0, 1.0)},
+    "multi_nu_geo_480x360": {"less_ratio": (0.9999276399612427, 0.00025028852068274506),
+                             "avg_diff": (-3.1522340293577145e-08, 1.0898933140300408e-07)},
+    "multi_nu_geo_600x600": {"less_ratio": (0.9980524778366089, 0.000919522573509814),
+                             "avg_diff": (-1.1166325748490635e-06, 5.272247546631206e-07)},
+    "multi_nu_geo_200x200": {"less_ratio": (1.0000348091125488, 8.257095212869035e-05),
+                             "avg_diff": (1.1912114850076705e-08, 2.8193645713288867e-08)},
+    "multi_nu_geo_200x200_best_of_4": {
+        "less_ratio": (1.0002458095550537, 6.478120942752427e-05),
+        "avg_diff": (8.396119000053659e-08, 2.2119451143748614e-08)},
+}
 
 
 def co_rows():
@@ -175,16 +270,17 @@ def co_rows():
 
 def quality_rows(rows):
     """Loader-normalized conditions for a spec's ``rows``: the CO fixture;
-    MSR gains U(0, 1) (with the budget column W / 10 for ``msr_budget``); NU
-    users U(0, 1) and the budget P / 18; nu_geo square fields of 200, 400 or
-    600 m and budgets U(9, 36) mW, each row its own."""
+    MSR gains U(0, 1) of M channels (``rows[3]``, default 3; with the budget
+    column W / 10 where ``rows[2]`` gives W); NU users U(0, 1) and the
+    budget P / 18; nu_geo square fields of 200, 400 or 600 m and budgets
+    U(9, 36) mW, each row its own."""
     kind = rows[0]
     if kind == "co":
         return co_rows()[0]
     B = rows[1]
     rng = np.random.default_rng({"msr": 11, "nu_budget": 12, "nu_geo": 13}[kind])
     if kind == "msr":
-        X = rng.uniform(0, 1, (B, 3))
+        X = rng.uniform(0, 1, (B, rows[3] if len(rows) > 3 else 3))
         if len(rows) > 2:
             X = np.concatenate([X, np.full((B, 1), rows[2] / 10.0)], axis=1)
     elif kind == "nu_budget":
@@ -212,12 +308,13 @@ def spec_quality(name: str, task, cfg, dec, Xu, exact=None):
     from diffsg_tpu_torch.baselines import co_exact_solve, waterfilling
 
     score = task.objective(dec, Xu, cfg)
-    if name.startswith("co"):
+    kind = QUALITY_SPECS[name]["rows"][0]
+    if kind == "co":
         exact = co_exact_solve(Xu) if exact is None else exact
         ref = task.objective(exact, Xu, cfg)
         return score / ref, task.extra_metrics(dec.cpu().numpy(), exact.cpu().numpy(),
                                                score.cpu(), ref.cpu(), cfg)
-    if name.startswith("msr"):
+    if kind == "msr":
         return score / task.objective(waterfilling(Xu[:, :cfg["M"]], cfg["W"]), Xu, cfg), {}
     return score, {}
 
@@ -443,7 +540,22 @@ def main() -> int:
     # Every block shape of nu_geo_x0f is one of the CO net's: its cases are those.
     geo_shapes = block_shapes(geo_model)[1]
     check(set(geo_shapes) <= set(co_shapes), f"nu_geo shapes {sorted(geo_shapes)} beyond CO's")
-    net_shapes = {"msr": shapes, "p256": p256_shapes, "co": co_shapes}
+    # The multi-task nets: ddpm_multi and ddpm_multi_geo have MSR-3c's widths
+    # (input 5, condition 12), so MSR-3c's block shapes; ddpm_multi_80 is a
+    # proj-256 net (input 80, condition 86) on a serving path, every one of
+    # its block shapes a case here with its own weights.
+    multi_model = Solver.from_checkpoint(os.path.join(REPO, "ckpts", "ddpm_multi"),
+                                         task="multi_co", backend="mega").model.inner
+    m80_model = Solver.from_checkpoint(os.path.join(REPO, "ckpts", "ddpm_multi_80"),
+                                       task="multi_msr80", backend="mega").model.inner
+    check(set(block_shapes(multi_model)[1]) == set(shapes)
+          and (multi_model.input_dim, multi_model.cond_dim) == (5, 12),
+          "ddpm_multi: MSR-3c's block shapes, input 5, condition 12")
+    check((m80_model.proj_dim, m80_model.input_dim, m80_model.cond_dim) == (256, 80, 86),
+          "ddpm_multi_80: proj 256, input 80, condition 86")
+    m80_blocks, m80_shapes = block_shapes(m80_model)
+    check(len(m80_blocks) == 27, f"27 residual blocks in ddpm_multi_80, found {len(m80_blocks)}")
+    net_shapes = {"msr": shapes, "p256": p256_shapes, "co": co_shapes, "multi80": m80_shapes}
 
     rng = np.random.default_rng(0)
     per_shape = []
@@ -452,7 +564,8 @@ def main() -> int:
                 (((512, 256, True), ROWS, 1), ((256, 256, False), ROWS, 1),
                  ((512, 256, True), 1000, 1000))]
              + [("co", key, CO_ROWS, 1) for key in co_shapes]
-             + [("co", (128, 64, True), 1000, 1000)])
+             + [("co", (128, 64, True), 1000, 1000)]
+             + [("multi80", key, ROWS, 1) for key in m80_shapes])
     for net, (din, dout, sc), rows, t_rows in cases:
         res, per_forward = net_shapes[net][(din, dout, sc)]
         x = torch.tensor(rng.normal(size=(rows, din)), dtype=torch.float32, device=dev)
@@ -481,7 +594,7 @@ def main() -> int:
             k_call_ms = cuda_ms(lambda: fused_residual_block(*args), reps=20)
             p_call_ms = cuda_ms(lambda: resblock_reference(*args), reps=20)
         bound_ms, bound_by = resblock_bound(rows, t_rows, din, dout, sc)
-        on_path = (net, rows) in (("msr", ROWS), ("co", CO_ROWS))
+        on_path = (net, rows) in (("msr", ROWS), ("co", CO_ROWS), ("multi80", ROWS))
         row = {"net": net, "in": din, "out": dout, "shortcut": sc, "rows": rows,
                "t_rows": t_rows, "per_forward": per_forward if on_path else 0,
                "max_abs_err": err, "mean_abs_err": mean_err, "kernel_ms": k_ms, "tile_ms": tile_ms, "plain_ms": p_ms,
@@ -514,7 +627,11 @@ def main() -> int:
                   ("nu_budget", nub_model, 2 * NU_B, torch.float32),
                   ("msr_budget", budget_model, 1000, torch.float32),
                   ("nu_budget", nub_model, 1000, torch.float32),
-                  ("nu_budget", nub_model, 1000, torch.bfloat16)]
+                  ("nu_budget", nub_model, 1000, torch.bfloat16),
+                  ("multi", multi_model, ROWS, torch.float32),
+                  ("multi", multi_model, CO_ROWS, torch.float32),
+                  ("multi80", m80_model, ROWS, torch.float32),
+                  ("multi80", m80_model, 1000, torch.float32)]
     mega_rows = []
     for net, net_model, rows, dtype in mega_cases:
         cd = None if dtype == torch.float32 else dtype
@@ -548,7 +665,7 @@ def main() -> int:
                                             f"{mean_err} > {mean_tol}")
                 del noise
             check(err <= tol, f"mega {net} {dtype} rows {rows}: max abs err {err} > {tol}")
-            big = rows > ROWS or (net == "p256" and rows >= ROWS)
+            big = rows > ROWS or (net in ("p256", "multi80") and rows >= ROWS)
             reps, replays = (3, 2) if big else (20, 3)
             k_ms = graph_ms(lambda: mega.launch_mega(packed, ys, sc, st), reps, replays)
             tile_ms = {tr: graph_ms(lambda: mega.launch_mega(packed, ys, sc, st, tr), reps,
@@ -992,24 +1109,27 @@ def main() -> int:
         steps = base.sched.T if sampler == "ddpm" else sampler[1]
         if backend == "mega":
             return steps
-        return steps * len(block_shapes(base.model)[0])
+        if backend == "plain":
+            return 0
+        return steps * len(block_shapes(getattr(base.model, "inner", base.model))[0])
 
     def feasible(name, base, S, Xu):
         """Every row finite and inside its task's feasible set."""
         check(bool(np.isfinite(S).all()), f"{name}: finite solutions")
-        if name.startswith("co"):
+        kind = QUALITY_SPECS[name]["rows"][0]
+        if kind == "co":
             sums = S.sum(axis=1)
             check(bool((S >= 0).all()), f"{name}: shares >= 0")
             gap = float(np.where(sums == 0, 0.0, np.abs(sums - 1.0)).max())
             check(gap <= 1e-5, f"{name}: offloaded shares sum to 1 within 1e-5, off by {gap}")
-        elif name.startswith("msr"):
+        elif kind == "msr":
             W = base.config["W"]
             check(bool((S >= 0).all()), f"{name}: p >= 0")
             gap = float(np.abs(S.sum(axis=1) - W).max())
             check(gap <= 1e-4 * W, f"{name}: |sum p - W| = {gap}")
         else:
             K = base.config["K"]
-            box = (Xu[:, 2 * K + 1:2 * K + 3] if base.task.name == "nu_geo"
+            box = (Xu[:, 2 * K + 1:2 * K + 3] if kind == "nu_geo"
                    else np.array([[base.config["width"], base.config["height"]]]))
             budget = Xu[:, 2 * K]
             check(bool(((S[:, :2] >= 0) & (S[:, :2] <= box * (1 + 1e-6))).all()),
@@ -1030,7 +1150,7 @@ def main() -> int:
         X = spec_rows(name, B)
         Xu = np.asarray(base.task.unnormalize_x(X, base.config), np.float32)
         Xu_t = torch.tensor(Xu, device=dev)
-        exact = co_exact_solve(Xu_t) if name.startswith("co") else None
+        exact = co_exact_solve(Xu_t) if spec["rows"][0] == "co" else None
         kw = spec_kw(name)
         n_req = per_request(name, base, backend)
         held_to = name if held_to == "spec" else held_to
@@ -1188,6 +1308,159 @@ def main() -> int:
     emit("serve_refine", **rows_out)
     torch.cuda.empty_cache()
 
+    # -- the multi-task nets ------------------------------------------------------
+    def forward_turns(model, rows, order):
+        """Device ms of one forward of ``model`` (a face's condition adapter)
+        per backend at ``rows`` rows, half of them masked, each timed from a
+        graph in ``order``; each backend held to ``plain`` within
+        FORWARD_RTOL of the output's magnitude."""
+        net = model.inner
+        y = torch.tensor(rng.normal(size=(rows, net.input_dim)), dtype=torch.float32,
+                         device=dev)
+        cond = torch.tensor(rng.uniform(0, 1, (rows, model.payload_dim)), dtype=torch.float32,
+                            device=dev)
+        mask = (torch.arange(rows, device=dev) >= rows // 2).float()[:, None]
+        t = torch.full((1,), 0.37, device=dev)
+        fns = {b: unet_apply_fn(model, b) for b in order}
+        out = {"ms": {b: [] for b in fns}, "max_abs_err": {}}
+        with torch.no_grad():
+            ref = fns["plain"](y, t, cond, mask)
+            scale = float(ref.abs().max())
+            for b, fn in fns.items():
+                err = float((fn(y, t, cond, mask) - ref).abs().max())
+                check(err <= FORWARD_RTOL * scale, f"{b} forward of the adapter: max abs err "
+                                                   f"{err} vs {scale}")
+                out["max_abs_err"][b] = err
+            for b in order:
+                out["ms"][b].append(graph_ms(lambda: fns[b](y, t, cond, mask), reps=10))
+        out["out_max_abs"] = scale
+        return out
+
+    # serve_multi: ckpts/ddpm_multi's faces, fused and mega f32 in turns (the
+    # order alternates by face), each eagerly and from its bucket's graph.
+    multi_out = {}
+    for name, B, order in (("multi_msr", SERVE_B, ("fused", "mega")),
+                           ("multi_co", CO_B, ("mega", "fused")),
+                           ("multi_nu", MULTI_NU_B, ("fused", "mega"))):
+        multi_out[name] = {}
+        for backend in order:
+            row = serve_spec(name, backend, B, [0, 1])
+            new_launches[backend] += row["launches"]
+            multi_out[name][backend] = public_row(row)
+        multi_out[name]["vs_jax"] = vs_jax(name)
+        multi_out[name]["vs_jax_fused"] = vs_jax(name, "fused")
+        torch.cuda.empty_cache()
+    base = spec_solver("multi_msr", "mega")
+    multi_out["forward"] = {"rows": ROWS, **forward_turns(
+        base.model, ROWS, ("plain", "fused", "mega", "mega", "fused", "plain"))}
+    emit("serve_multi", **multi_out)
+
+    # serve_multi_geo: ckpts/ddpm_multi_geo's geometry-conditioned NU face on
+    # mixed fields.
+    geo_out = {}
+    for backend in ("mega", "fused"):
+        row = serve_spec("multi_nu_geo", backend, MULTI_NU_B, [0, 1])
+        new_launches[backend] += row["launches"]
+        geo_out[backend] = public_row(row)
+    geo_out["vs_jax"] = vs_jax("multi_nu_geo")
+    emit("serve_multi_geo", **geo_out)
+    torch.cuda.empty_cache()
+
+    # serve_multi_80: the proj-256 net (ckpts/ddpm_multi_80) through MSR-80c
+    # at 20 W and MSR-8c at 10 W, float32 only, on plain, fused and mega in
+    # turns, each from its bucket's graph: which backend serves this net.
+    turns = ("plain", "fused", "mega", "mega", "fused", "plain")
+    m80_out = {}
+    for name in ("multi_msr80", "multi_msr8"):
+        base = spec_solver(name, "plain")
+        X = spec_rows(name, SERVE_B)
+        Xu_t = torch.tensor(np.asarray(base.task.unnormalize_x(X, base.config), np.float32),
+                            device=dev)
+        kw = spec_kw(name)
+        mean, tol = JAX_QUALITY[name]
+        solvers = {b: Solver(base.task, base.model, base.sched, base.config, backend=b,
+                             buckets=(SERVE_B,)) for b in ("plain", "fused", "mega")}
+        capture_s = {}
+        for b, s_ in solvers.items():
+            t0 = time.perf_counter()
+            s_.solve(X, seed=0, **kw)
+            torch.cuda.synchronize()
+            capture_s[b] = time.perf_counter() - t0
+        reqs_by = {b: [] for b in solvers}
+        for b in turns:
+            reqs, n_fused, n_mega = serve(lambda seed: solvers[b].solve(X, seed=seed, **kw), [1, 2])
+            n_req = per_request(name, base, b)
+            counted, other = ((n_fused, n_mega) if b == "fused" else (n_mega, n_fused))
+            check(counted == 2 * n_req and other == 0,
+                  f"{name} {b}: {n_req} launches a request, counted {counted} and {other}")
+            if b != "plain":
+                new_launches[b] += counted
+            for r in reqs:
+                feasible(name, base, r["P"], Xu_t.cpu().numpy())
+                r["quality"] = float(spec_quality(name, base.task, base.config,
+                                                  torch.tensor(r["P"], device=dev), Xu_t)[0].mean())
+                check(abs(r["quality"] - mean) <= tol,
+                      f"{name} {b} seed {r['seed']}: mean quality {r['quality']} vs the JAX "
+                      f"package's {mean} (+-{tol})")
+            reqs_by[b] += reqs
+        m80_out[name] = {
+            "B": SERVE_B, "T": base.sched.T, **kw, "jax_quality": mean, "tol": tol,
+            "capture_s": capture_s, "launches_per_request": {
+                b: per_request(name, base, b) for b in solvers},
+            **{b: {"solutions_per_s": SERVE_B / float(np.median([r["s"] for r in reqs])),
+                   "requests": [{k: r[k] for k in ("seed", "s", "quality")} for r in reqs]}
+               for b, reqs in reqs_by.items()},
+            "vs_jax": vs_jax(name)}
+        del solvers, reqs_by
+        torch.cuda.empty_cache()
+    m80_out["forward"] = {"rows": ROWS, **forward_turns(spec_solver("multi_msr80", "plain").model,
+                                                        ROWS, turns)}
+    emit("serve_multi_80", **m80_out)
+
+    # -- eval: tasks.base.evaluate on the repository's data ------------------------
+    # datasets/ is not committed: its CSVs are remade from their recipes where
+    # missing (data.generators.ensure_datasets), and their SHA-256 are held
+    # against the files the JAX constants were computed on. evaluate runs the
+    # Solver's default backend (fused), 512 rows a batch.
+    from diffsg_tpu_torch.data import ensure_datasets
+    from diffsg_tpu_torch.tasks import TASKS, evaluate, merge_multi_config
+    from diffsg_tpu_torch.utils import load_checkpoint
+
+    t0 = time.perf_counter()
+    paths = ensure_datasets()
+    eval_out = {"datasets_s": time.perf_counter() - t0, "sha256_match": {
+        n: hashlib.sha256(p.read_bytes()).hexdigest() == DATASET_SHA256[n]
+        for n, p in paths.items()}}
+    for name, spec in EVAL_SPECS.items():
+        ck = load_checkpoint(os.path.join(REPO, "ckpts", spec["ckpt"]), device=dev)
+        task = TASKS[spec["task"]]
+        data = task.load(str(paths[spec["csv"]]), **spec.get("load_kw", {}))
+        merge_multi_config(data.config, ck["metadata"], spec["task"].split("_", 1)[1])
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best_of = spec.get("best_of", 1)
+        metrics = evaluate(task, ck["params"], ck["sched"], data, omega=spec["omega"], seed=0,
+                           best_of=best_of)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = data.X_test.shape[0]
+        want = -(-n // 512) * best_of * ck["sched"].T * 27
+        check(resblock.LAUNCHES == want and mega.LAUNCHES == 0,
+              f"eval {name}: {want} fused launches, counted {resblock.LAUNCHES} and "
+              f"{mega.LAUNCHES} mega")
+        new_launches["fused"] += resblock.LAUNCHES
+        check(metrics["n_samples"] == n, f"eval {name}: {metrics['n_samples']} rows, not {n}")
+        for k, (mean, tol) in EVAL_JAX[name].items():
+            check(np.isfinite(metrics[k]) and abs(metrics[k] - mean) <= tol,
+                  f"eval {name}: {k} {metrics[k]} vs the JAX package's {mean} (+-{tol})")
+        eval_out[name] = {"rows": n, "omega": spec["omega"], "seconds": seconds,
+                          "rows_per_s": n / seconds, "launches": resblock.LAUNCHES,
+                          "metrics": metrics, "jax": EVAL_JAX[name],
+                          "diff_over_tol": {k: abs(metrics[k] - m) / t
+                                            for k, (m, t) in EVAL_JAX[name].items()}}
+    emit("eval", **eval_out)
+
     # -- kernels: one line per kernel ---------------------------------------------
     main_shapes = [r for r in per_shape if r["per_forward"] and r["net"] == "msr"]
     bounds = {}
@@ -1204,10 +1477,12 @@ def main() -> int:
          "bound_ms": sum(bounds.values()), "bound_by": max(bounds, key=bounds.get),
          "library_ms": None,
          "per": f"one MSR-3c forward: the 27 launches at {ROWS} rows; launches over the "
-                f"2 fused serving requests, serve_graph's 8 fused requests (4 replayed) and "
-                f"serve_co's 4 fused requests (2 replayed, {new_launches['fused']})",
+                f"2 fused serving requests, serve_graph's 8 fused requests (4 replayed), and "
+                f"serve_co, the multi-task phases and eval ({new_launches['fused']})",
          "co_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
                               if r["net"] == "co"),
+         "multi80_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
+                                   if r["net"] == "multi80"),
          "cases": [{k: r[k] for k in ("net", "in", "out", "shortcut", "rows", "per_forward",
                                       "variant", "tile_rows", "grid", "max_abs_err",
                                       "mean_abs_err", "kernel_ms", "tile_ms", "plain_ms",
@@ -1225,8 +1500,8 @@ def main() -> int:
                 f"({serve_msr_mega_launches}), serve_msr_mega_bf16 ({serve_msr_bf16_launches}), "
                 f"serve_nu ({serve_nu_launches}), serve_nu_bf16 ({serve_nu_bf16_launches}), "
                 f"serve_graph ({serve_graph_launches['mega']}), serve_best_of "
-                f"({serve_best_of_launches}) and the CO, MSR-variant, conditioned-NU and "
-                f"refinement phases ({new_launches['mega']})",
+                f"({serve_best_of_launches}) and the CO, MSR-variant, conditioned-NU, "
+                f"refinement and multi-task phases ({new_launches['mega']})",
          "cases": [{k: r[k] for k in ("net", "dtype", "rows", "tile_rows", "max_abs_err",
                                       "mean_abs_err", "kernel_ms", "plain_ms", "plain_bf16_ms",
                                       "bound_ms", "bound_by")}

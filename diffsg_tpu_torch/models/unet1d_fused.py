@@ -79,7 +79,14 @@ def unet_apply_fn(model: UNet1D, backend: str = "fused",
     bfloat16 copy of the model passed as ``model`` gives the same: "mega"
     then follows its inputs' type and returns bfloat16 for bfloat16 inputs.
     "fused" raises on bfloat16, as the JAX kernel does.
+
+    A multi-task face's condition adapter (``tasks.multi._CondAdapter``,
+    the module with ``inner`` and ``pad_cond``) runs as ``pad_cond`` and
+    then the backend's forward of ``adapter.inner``.
     """
+    if hasattr(model, "pad_cond"):
+        inner = unet_apply_fn(model.inner, backend, compute_dtype)
+        return lambda y, t, c, m: inner(y, t, model.pad_cond(c), m)
     if backend == "mega":
         packed = pack_params(model, compute_dtype)
         return lambda y, t, c, m: unet_forward_mega(model, y, t, c, m, compute_dtype, packed)

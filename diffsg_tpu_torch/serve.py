@@ -32,6 +32,11 @@ Example:
 
     # Hybrid: 50 projected-gradient steps on the exact rate after the decode.
     hybrid = Solver.from_checkpoint("ckpts/ddpm_msr_3c_T100", task="msr", refine_iters=50)
+
+    # One multi-task net, three faces (T=20, x0): each face pads its own
+    # condition into the shared one and decodes its own columns.
+    co_face = Solver.from_checkpoint("ckpts/ddpm_multi", task="multi_co")
+    Y = co_face.solve(X_features, omega=0.5)          # (B, 3), as co_ranked
 """
 
 from __future__ import annotations
@@ -46,13 +51,12 @@ from .device import DeviceLike, resolve_device
 from .diffusion.ddim import ddim_sample, respaced_steps
 from .diffusion.ddpm import cfg_sample
 from .diffusion.schedule import Schedule
-from .models.unet1d import UNet1D
 from .models.unet1d_fused import unet_apply_fn
 from .ops import mega, resblock
 from .tasks import TASKS
-from .tasks.base import Task, refine_solutions, select_best
+from .tasks.base import Task, loaded_model, refine_solutions, select_best
+from .tasks.multi import merge_multi_config
 from .utils.checkpoint import load_checkpoint
-from .utils.params import params_from_jax
 
 
 def suggest_buckets(sizes: Sequence[int], max_buckets: int = 4, align: int = 64,
@@ -136,7 +140,7 @@ class Solver:
     ValueError for a task without a projection (CO).
     """
 
-    def __init__(self, task: Task, model: UNet1D, sched: Schedule, config: Dict,
+    def __init__(self, task: Task, model: torch.nn.Module, sched: Schedule, config: Dict,
                  backend: str = "fused", buckets: Optional[Sequence[int]] = None,
                  graphs: bool = True, refine_iters: int = 0,
                  refine_step: Optional[float] = None):
@@ -164,15 +168,25 @@ class Solver:
         """Load a ``diffsg_tpu.npz.v1`` checkpoint onto ``device``; ``kw``
         goes to the constructor (``graphs``, ``refine_iters``,
         ``refine_step``). ``dataset_config`` updates the checkpoint's
-        recorded one."""
+        recorded one.
+
+        A multi-task face (``task="multi_<slot>"``) of a multi-task
+        checkpoint starts from the checkpoint's ``subtask_configs[slot]``
+        (``slot`` is the name after ``multi_``: ``nu_geo`` for
+        ``multi_nu_geo``) and its shared architecture
+        (``tasks.multi.merge_multi_config``)."""
         dev = resolve_device(device)
         ck = load_checkpoint(ckpt_dir, device=dev)
-        config = dict(ck["metadata"].get("dataset_config") or {})
+        md = ck["metadata"]
+        config = dict(md.get("dataset_config") or {})
+        if task.startswith("multi_") and "subtask_configs" in md:
+            slot = task.split("_", 1)[1]
+            config.update(md["subtask_configs"].get(slot) or {})
+            merge_multi_config(config, md, slot)
         config.update(dataset_config or {})
         t = TASKS[task]
-        model = t.build_model(config)
-        model.load_state_dict(params_from_jax(ck["params"]), strict=True)
-        return cls(t, model.to(dev).eval(), ck["sched"], config, backend, buckets, **kw)
+        return cls(t, loaded_model(t, ck["params"], config, dev), ck["sched"], config, backend,
+                   buckets, **kw)
 
     @classmethod
     def from_torch_checkpoint(cls, pt_path: str, task: str, dataset_config: Dict,

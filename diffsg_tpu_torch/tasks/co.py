@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 
 from ..baselines.co_exact import co_analytic_decode, co_direct_decode, co_ranked_decode
+from ..data.loaders import load_co
 from ..models.unet1d import unet_co
 from ..ops.decoders import co_decode
 from ..ops.objectives import co_cost
@@ -72,6 +73,7 @@ def _decode_ranked(Y_raw, X_unnorm, config, valid_mask=None):
 CO = Task(
     name="co",
     build_model=lambda cfg: unet_co(cfg["node_num"]),
+    load=load_co,
     decode=_decode,
     objective=_objective,
     unnormalize_x=_unnorm_x,

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..data.loaders import load_msr, load_msr_budget
 from ..models.unet1d import unet_msr
 from ..ops.decoders import masked_min_max, msr_decode, msr_simplex_project
 from ..ops.objectives import msr_sum_rate
@@ -95,6 +96,7 @@ def _build_model(cfg):
 MSR = Task(
     name="msr",
     build_model=_build_model,
+    load=load_msr,
     decode=_decode,
     objective=_objective,
     unnormalize_x=_unnorm_x,
@@ -140,6 +142,7 @@ MSR_BUDGET = dataclasses.replace(
     MSR, name="msr_budget",
     build_model=lambda cfg: unet_msr(cfg["M"], cfg.get("proj_dim", 128),
                                      tuple(cfg.get("dims", (64, 32, 16, 8))), cond_extra=1),
+    load=load_msr_budget,
     decode_with_x=_decode_wf_budget,
     objective=_objective_budget,
     unnormalize_x=_unnorm_x_budget,

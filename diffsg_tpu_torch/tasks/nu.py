@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..data.loaders import load_nu, load_nu_budget, load_nu_geo
 from ..models.unet1d import unet_nu
 from ..ops.decoders import _by_column, msr_simplex_project, nu_decode, nu_direct_decode
 from ..ops.objectives import nu_rate
@@ -87,6 +88,7 @@ def _project_budget(Y_dec, X_unnorm, config):
 NU = Task(
     name="nu",
     build_model=lambda cfg: unet_nu(cfg["K"]),
+    load=load_nu,
     decode=_decode,
     objective=_objective,
     unnormalize_x=_unnorm_x,
@@ -127,6 +129,7 @@ def _objective_budget(Y_dec, X_unnorm, config):
 NU_BUDGET = dataclasses.replace(
     NU, name="nu_budget",
     build_model=lambda cfg: unet_nu(cfg["K"], cond_extra=1),
+    load=load_nu_budget,
     decode=_decode_direct,
     objective=_objective_budget,
     unnormalize_x=_unnorm_x_budget,
@@ -182,6 +185,11 @@ def _project_geo(Y_dec, X_unnorm, config):
     return torch.cat([xy, P], dim=1)
 
 
+def _load_nu_geo(dataset_path, width=400.0, height=400.0, P_sum=None):
+    # The default references (p_ref, w_ref, h_ref), as the JAX package's.
+    return load_nu_geo(dataset_path, width, height, P_sum)
+
+
 #: The universal NU solver: the condition carries the budget and the
 #: field's geometry, so one model serves any budget on any rectangle. Its
 #: decode and projection are strictly per row: mixed-geometry batches are
@@ -190,6 +198,7 @@ NU_GEO = dataclasses.replace(
     NU, name="nu_geo",
     build_model=lambda cfg: unet_nu(cfg["K"], cond_extra=3, proj_dim=cfg.get("proj_dim", 32),
                                     dims=tuple(cfg.get("dims", (32, 16, 8)))),
+    load=_load_nu_geo,
     decode=_decode_direct,            # the sampling paths use decode_with_x
     decode_with_x=_decode_geo,
     objective=_objective_geo,

@@ -421,3 +421,75 @@ def test_cuda_co_ranked_decode_is_stable_on_ties():
     torch.testing.assert_close(order, torch.argsort(-Y, dim=1, stable=True), rtol=0, atol=0)
     got = co_ranked_decode(Y.cuda(), X.cuda()).cpu()
     torch.testing.assert_close(got, co_ranked_decode(Y, X), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ckpt,face,backend,per_request", [
+    ("ddpm_multi", "multi_co", "fused", 20 * 27),
+    ("ddpm_multi", "multi_co", "mega", 20),
+    ("ddpm_multi_geo", "multi_nu_geo", "mega", 20),
+])
+def test_cuda_multi_graph_replay_equals_eager_and_counts_launches(ckpt, face, backend,
+                                                                  per_request):
+    """A multi-task face in its bucket's graph (the condition adapter's
+    pad inside the capture, T=20): replays equal eager bit for bit and add
+    the captured launches per replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from diffsg_tpu_torch.serve import Solver
+
+    graphed = _serve_solver(ckpt, face, backend, buckets=(64,))
+    eager = Solver(graphed.task, graphed.model, graphed.sched, graphed.config, backend=backend,
+                   buckets=(64,), graphs=False)
+    C = graphed.task.cond_dim(graphed.config)
+    X = np.random.default_rng(6).uniform(0.2, 1, (50, C)).astype(np.float32)
+    counter = resblock if backend == "fused" else mega
+    launches, captured = counter.LAUNCHES, counter.CAPTURED
+    first = graphed.solve(X, omega=0.5, seed=1)
+    assert len(graphed._graphs) == 1
+    assert counter.CAPTURED == captured + per_request
+    assert counter.LAUNCHES == launches + 2 * per_request
+    again = graphed.solve(X, omega=0.5, seed=1)
+    assert counter.LAUNCHES == launches + 3 * per_request
+    np.testing.assert_array_equal(first, again)
+    np.testing.assert_array_equal(first, eager.solve(X, omega=0.5, seed=1))
+    assert bool(np.isfinite(first).all()) and first.shape[0] == 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ckpt,face,backend,per_forward,rows", [
+    ("ddpm_multi", "multi_msr", "fused", 27, 4096),
+    ("ddpm_multi", "multi_msr", "mega", 1, 4096),
+    ("ddpm_multi_80", "multi_msr80", "fused", 27, 16384),
+    ("ddpm_multi_80", "multi_msr80", "mega", 1, 16384),
+    ("ddpm_multi_80", "multi_msr8", "mega", 1, 1000),
+])
+def test_cuda_multi_forward_matches_plain_and_counts_launches(ckpt, face, backend, per_forward,
+                                                              rows):
+    """``unet_apply_fn`` on a face's condition adapter runs the backend's
+    kernels on the shared net (one launch a block, or one a forward), and
+    equals the plain forward within the float32 forward tolerance (1e-4 of
+    the output's magnitude): on ddpm_multi and on the proj-256 ddpm_multi_80."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from diffsg_tpu_torch.models import unet_apply_fn
+
+    solver = _serve_solver(ckpt, face, backend)
+    model = solver.model
+    rng = np.random.default_rng(rows)
+    y = torch.tensor(rng.normal(size=(rows, model.inner.input_dim)), dtype=torch.float32,
+                     device="cuda")
+    c = torch.tensor(rng.uniform(size=(rows, model.payload_dim)), dtype=torch.float32,
+                     device="cuda")
+    m = (torch.arange(rows, device="cuda") >= rows // 2).float()[:, None]
+    t = torch.tensor([0.37], device="cuda")
+    counter = resblock if backend == "fused" else mega
+    before = counter.LAUNCHES
+    with torch.no_grad():
+        out = unet_apply_fn(model, backend)(y, t, c, m)
+        torch.cuda.synchronize()
+        ref = unet_apply_fn(model, "plain")(y, t, c, m)
+    assert counter.LAUNCHES == before + per_forward
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))

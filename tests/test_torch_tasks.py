@@ -26,6 +26,7 @@ from diffsg_tpu.diffusion import cfg_sample as jax_cfg_sample, ddim_sample as ja
 from diffsg_tpu.models.unet1d_pallas import unet_apply_fn as jax_apply_fn
 from diffsg_tpu.tasks import TASKS as JAX_TASKS
 from diffsg_tpu.tasks import condition as jax_condition
+from diffsg_tpu.tasks.multi import merge_multi_config as jax_merge_multi_config
 from diffsg_tpu.tasks.base import refine_solutions as jax_refine_solutions
 from diffsg_tpu.utils import load_checkpoint as jax_load_checkpoint
 from diffsg_tpu_torch.diffusion import ddim_sample
@@ -64,8 +65,11 @@ def _jax_draw_fn(ckpt, model, sampler, sched, D, param, skip):
     schedule (DDPM's; JAX's DDIM reads its schedule on the host) and omega
     are arguments, so DDPM checkpoints of one architecture share a
     compile."""
+    # A multi-task face's adapter is keyed by its net and its slot.
+    arch = ((repr(model.inner), model.slot_idx, model.payload_dim) if hasattr(model, "inner")
+            else repr(model))
     if sampler == "ddpm":
-        key = (repr(model), sampler, sched.T, D, param, skip)
+        key = (arch, sampler, sched.T, D, param, skip)
         if key not in _DRAWS:
             apply = jax_apply_fn(model, "xla")
             _DRAWS[key] = jax.jit(lambda p, sch, c, w, i, s: jax_cfg_sample(
@@ -81,11 +85,23 @@ def _jax_draw_fn(ckpt, model, sampler, sched, D, param, skip):
     return _DRAWS[key]
 
 
+def jax_config(metadata, task_name, config):
+    """The config ``diffsg_tpu.serve.Solver.from_checkpoint`` builds: the
+    recorded dataset config, for a multi-task face its subtask's config and
+    the shared architecture, then ``config``."""
+    cfg = dict(metadata.get("dataset_config") or {})
+    if task_name.startswith("multi_") and "subtask_configs" in metadata:
+        slot = task_name.split("_", 1)[1]
+        cfg.update(metadata["subtask_configs"].get(slot) or {})
+        jax_merge_multi_config(cfg, metadata, slot)
+    cfg.update(config)
+    return cfg
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_y0(ckpt, task_name, config_items, sampler, omega, rows, seed):
     jck = jax_load_checkpoint(str(CKPTS / ckpt))
-    cfg = dict(jck["metadata"].get("dataset_config") or {})
-    cfg.update(dict(config_items))
+    cfg = jax_config(jck["metadata"], task_name, dict(config_items))
     jt = JAX_TASKS[task_name]
     X = chip_smoke.quality_rows(rows)
     D, T = jt.data_dim(cfg), jck["sched"].T
@@ -112,9 +128,10 @@ def jax_quality(name, seed):
     if spec.get("refine"):
         dec = jax.jit(lambda Y, Xu: jax_refine_solutions(jt, Y, Xu, cfg, spec["refine"]))(dec, cu)
     score = jt.objective(dec, cu, cfg)
-    if name.startswith("co"):
+    kind = spec["rows"][0]
+    if kind == "co":
         score = score / jt.objective(jax_co_exact_solve(cu), cu, cfg)
-    elif name.startswith("msr"):
+    elif kind == "msr":
         score = score / jt.objective(jax_waterfilling(cu[:, :cfg["M"]], cfg["W"]), cu, cfg)
     return np.asarray(score, np.float64)
 
@@ -139,7 +156,7 @@ def check_vs_jax_constant(name):
 def test_tasks_has_every_non_multi_name():
     names = {"msr", "msr_temp", "msr_wf", "msr_budget", "co", "co_analytic", "co_direct",
              "co_ranked", "nu", "nu_direct", "nu_budget", "nu_geo"}
-    assert set(TASKS) == names
+    assert {n for n in TASKS if not n.startswith("multi")} == names
     assert names == {n for n in JAX_TASKS if not n.startswith("multi")}
     for name, task in TASKS.items():
         jt = JAX_TASKS[name]
