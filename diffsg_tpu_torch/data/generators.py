@@ -1,6 +1,8 @@
-"""The oracle generators that remake the evaluation datasets.
+"""The oracle generators that remake the evaluation datasets, and the MSR
+label generators.
 
-The part of ``diffsg_tpu/data/generators.py`` that ``datasets/`` needs:
+The part of ``diffsg_tpu/data/generators.py`` that ``datasets/`` and the
+MSR training sets need:
 ``datasets/`` is not committed (its ``.gitignore`` lists every file), so a
 fresh checkout remakes the CSVs it reads, and the generation is
 deterministic. The CO oracle (``co_minlp_gen``) is NumPy, a copy; the NU
@@ -10,7 +12,9 @@ bound in ``data/native.py``), the engine the JAX package's
 
 :func:`ensure_datasets` writes the four CSVs of ``EVAL_DATASETS`` with the
 recipes of ``tools/make_datasets.py::KNOWN_DATASETS``, byte for byte the
-files that tool writes from the same seeds.
+files that tool writes from the same seeds. :func:`sum_rate_gen` (the
+reference's LRH labels), :func:`msr_waterfilling_labels` (exact labels) and
+:func:`write_msr_csv` make what ``tools/make_datasets.py msr`` writes.
 """
 
 from __future__ import annotations
@@ -139,6 +143,88 @@ def nu_coordinates_gen(rng: np.random.Generator, sample_num: int, K: int = 3,
             qs[i, 2 * j + 1] = rng.integers(height // 2 * (b // 2) + 1,
                                             height // 2 * (1 + b // 2) + 1)
     return qs
+
+
+# --- MSR: LRH gradient-descent label generator ----------------------------------
+
+
+def _sum_rate_grad(gs, schemes):
+    return gs / ((gs * schemes + 1.0) * np.log(2))
+
+
+def _alpha_calc(grad: np.ndarray) -> np.ndarray:
+    """Sum-preserving signed step direction (``dataset_generate.py:257-278``),
+    vectorized: walk channels by descending |grad|; assign +-1 until the
+    cumulative |grad| reaches half the total, give the pivot the balancing
+    fraction, and flip the sign of everything after it."""
+    g_abs = np.abs(grad)
+    order = np.argsort(-g_abs, axis=1, kind="stable")
+    g_sorted = np.take_along_axis(g_abs, order, axis=1)
+    sign_sorted = np.where(np.take_along_axis(grad, order, axis=1) > 0, 1.0, -1.0)
+
+    total = g_sorted.sum(axis=1, keepdims=True)
+    cum_incl = np.cumsum(g_sorted, axis=1)
+    cum_before = cum_incl - g_sorted
+    is_pivot_region = cum_incl >= total / 2
+    pivot_idx = np.argmax(is_pivot_region, axis=1)[:, None]
+    pos = np.arange(grad.shape[1])[None, :]
+
+    alpha_sorted = np.where(pos < pivot_idx, sign_sorted, 0.0)
+    pivot_val = (total - g_sorted - 2 * cum_before) / g_sorted * sign_sorted
+    alpha_sorted = np.where(pos == pivot_idx, pivot_val, alpha_sorted)
+    alpha_sorted = np.where(pos > pivot_idx, -sign_sorted, alpha_sorted)
+
+    alpha = np.zeros_like(grad)
+    np.put_along_axis(alpha, order, alpha_sorted, axis=1)
+    return alpha
+
+
+def sum_rate_gen(sample_num: int, M: int = 3, g_range=(0.5, 2.5), W: float = 10.0,
+                 seed: int = 0):
+    """MSR label generator (``dataset_generate.py:280-313``): sum-preserving
+    LRH gradient ascent, 150 iters max, step 0.1 halved every 20 iters.
+
+    Returns (gs (n, M), rates (n,), schemes (n, M)); CSV layout for
+    :func:`write_msr_csv` is ``[g..., rate, p...]``.
+    """
+    rng = np.random.default_rng(seed)
+    schemes = np.ones((sample_num, M)) * (W / M)
+    gs = rng.uniform(g_range[0], g_range[1], size=(sample_num, M))
+
+    eps, beta, k = 0.001, 0.1, 1
+    grad = _sum_rate_grad(gs, schemes)
+    while np.any(np.average(np.abs(grad), axis=1) > eps):
+        grad = _sum_rate_grad(gs, schemes)
+        schemes = schemes + beta * _alpha_calc(grad) * grad
+        k += 1
+        if k % 20 == 0:
+            beta *= 0.5
+        if k == 150:
+            break
+    rates = np.sum(np.log2(1.0 + schemes * gs), axis=1)
+    return gs, rates, schemes
+
+
+def msr_waterfilling_labels(gs: np.ndarray, W: float):
+    """Exact feasible MSR labels by NumPy waterfilling (the twin of
+    ``baselines/waterfilling.py``). Returns (rates (n,), schemes (n, M))
+    with schemes >= 0 and sum W."""
+    inv = 1.0 / gs
+    inv_sorted = np.sort(inv, axis=1)
+    csum = np.cumsum(inv_sorted, axis=1)
+    k = np.arange(1, gs.shape[1] + 1, dtype=gs.dtype)[None, :]
+    mu_k = (W + csum) / k
+    valid = mu_k > inv_sorted
+    k_star = valid.sum(axis=1) - 1
+    mu = np.take_along_axis(mu_k, k_star[:, None], axis=1)
+    schemes = np.maximum(mu - inv, 0.0)
+    rates = np.sum(np.log2(1.0 + schemes * gs), axis=1)
+    return rates, schemes
+
+
+def write_msr_csv(path: str, gs, rates, schemes) -> None:
+    np.savetxt(path, np.concatenate([gs, rates[:, None], schemes], axis=1),
+               delimiter=",")
 
 
 #: The evaluation CSVs and their recipes (``tools/make_datasets.py``):

@@ -1,7 +1,11 @@
-"""Classifier-free-guidance DDPM reverse sampler.
+"""Classifier-free-guidance DDPM: the training loss and the reverse sampler.
 
-Counterpart of ``diffsg_tpu/diffusion/ddpm.py::cfg_sample``. The reference
-numerics are kept:
+Counterpart of ``diffsg_tpu/diffusion/ddpm.py``. The training side
+(:func:`q_sample`, :func:`ddpm_loss`) draws a per-row timestep uniform in
+``[0, T)``, noises ``y_t = sqrt(abar_t) y_0 + sqrt(1 - abar_t) eps``, drops
+the condition with probability ``uncond_prob`` per row, shows the net the
+normalized time ``t / T`` and takes the plain mean of the squared error.
+The sampler keeps the reference numerics:
 
 * the two CFG passes are folded into one forward of ``2B`` rows, rows
   ``[0:B]`` unconditional (mask 0) and ``[B:2B]`` conditional (mask 1),
@@ -35,6 +39,51 @@ from .schedule import Schedule
 # apply_fn(y_t, t_norm, cond, cond_mask) -> model output (B, D)
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 Omega = Union[float, torch.Tensor]
+
+
+def q_sample(sched: Schedule, y0: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """The forward (noising) process: ``y_t | y_0`` for integer ``t`` (B,)
+    in ``[0, T)``."""
+    return (sched.sqrt_alphas_cumprod[t][:, None] * y0
+            + sched.sqrt_one_minus_alphas_cumprod[t][:, None] * noise)
+
+
+def ddpm_loss(apply_fn: ApplyFn, sched: Schedule, y0: torch.Tensor, cond: torch.Tensor,
+              uncond_prob: float = 0.1, parameterization: str = "eps", *,
+              t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+              cond_mask: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The CFG training loss: the mean squared error of the net's output
+    against epsilon (``"eps"``, the reference), ``y_0`` (``"x0"``) or the
+    velocity ``sqrt(abar_t) eps - sqrt(1 - abar_t) y_0`` (``"v"``).
+
+    The draws may be given: ``t`` (B,) integers in ``[0, T)``, ``noise``
+    (B, D) and ``cond_mask`` (B, 1) of 1.0 (keep the condition) and 0.0
+    (drop it). Those not given are drawn from ``generator`` (on ``y0``'s
+    device): ``t`` uniform, ``noise`` standard normal and ``cond_mask``
+    Bernoulli with keep-probability ``1 - uncond_prob``, in that order.
+    """
+    if parameterization not in ("eps", "x0", "v"):
+        raise ValueError(f"unknown parameterization {parameterization!r}")
+    B, T, dev, dtype = y0.shape[0], sched.T, y0.device, y0.dtype
+    if t is None:
+        t = torch.randint(0, T, (B,), generator=generator, device=dev)
+    if noise is None:
+        noise = torch.randn(y0.shape, generator=generator, device=dev, dtype=dtype)
+    if cond_mask is None:
+        keep = torch.full((B, 1), 1.0 - uncond_prob, device=dev, dtype=dtype)
+        cond_mask = torch.bernoulli(keep, generator=generator)
+    y_t = q_sample(sched, y0, t, noise)
+    pred = apply_fn(y_t, t.to(dtype) / T, cond, cond_mask)
+    if parameterization == "eps":
+        target = noise
+    elif parameterization == "x0":
+        target = y0
+    else:
+        target = (sched.sqrt_alphas_cumprod[t][:, None] * noise
+                  - sched.sqrt_one_minus_alphas_cumprod[t][:, None] * y0)
+    return ((target - pred) ** 2).mean()
 
 
 class SampleTrace(NamedTuple):

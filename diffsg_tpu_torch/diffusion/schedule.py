@@ -68,3 +68,10 @@ def schedule_from_betas(betas: np.ndarray, device: DeviceLike = "cuda") -> Sched
         remove_noise_coeff=f32(betas / np.sqrt(1.0 - alphas_cumprod)),
         sqrt_betas=f32(np.sqrt(betas)),
     )
+
+
+def cosine_schedule(T: int, s: float = 0.008, beta_clip: float = 0.84,
+                    device: DeviceLike = "cuda") -> Schedule:
+    """Cosine betas -> the full :class:`Schedule` on ``device`` (the
+    trainer's schedule)."""
+    return schedule_from_betas(cosine_beta_schedule(T, s=s, beta_clip=beta_clip), device=device)

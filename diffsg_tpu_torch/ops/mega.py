@@ -45,6 +45,7 @@ from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from .resblock import FORWARD_ONLY
 
 if TYPE_CHECKING:  # the models package imports this module
     from ..models.unet1d import UNet1D
@@ -411,7 +412,15 @@ def unet_forward_mega(model: "UNet1D", y: torch.Tensor, t: torch.Tensor, cond: t
     only: with ``y`` in bfloat16, no ``compute_dtype`` and a float32 model
     (whose weights JAX would read in float32) it raises. Raises on anything
     the kernel does not take.
+
+    The kernel is forward-only, as the Pallas kernel is: under autograd, with
+    an input or a parameter of ``model`` that requires grad, it raises on
+    every device (its plain version reads the weights detached).
     """
+    if torch.is_grad_enabled() and (
+            any(a.requires_grad for a in (y, t, cond, cond_mask))
+            or any(p.requires_grad for p in model.parameters())):
+        raise RuntimeError(FORWARD_ONLY.format(name="unet_forward_mega"))
     if y.device.type == "cpu":
         return unet_forward_mega_reference(model, y, t, cond, cond_mask, compute_dtype)
     if y.device.type != "cuda":

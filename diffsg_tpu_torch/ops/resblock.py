@@ -197,6 +197,13 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+#: The error of a kernel wrapper called where autograd would record it.
+FORWARD_ONLY = ("{name} is forward-only, as the Pallas kernel it ports is: it has no backward, "
+                "so its output would carry no gradient. Call it under torch.no_grad() or "
+                "torch.inference_mode() (as the samplers and the Solver do), and train with "
+                "the 'plain' backend (the module's own forward), as train.train_ddpm does")
+
+
 def _check(name: str, t: torch.Tensor, device: torch.device, shape: Tuple[int, ...]) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
@@ -223,7 +230,16 @@ def fused_residual_block(
     version on the CPU. Raises on anything the kernel does not take.
     ``tile_rows`` is the kernel's rows per CTA, one of
     ``resblock_tile_heights(in_dim, out_dim)``; 0 takes
-    ``resblock_tile_rows``'s choice."""
+    ``resblock_tile_rows``'s choice.
+
+    The kernel is forward-only, as the Pallas kernel is: under autograd, with
+    any argument that requires grad, it raises on every device rather than
+    return an output that drops the gradient."""
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad
+            for a in (x, t_proj, c_proj, g1, be1, w1, b1, g2, be2, w2, b2, g3, be3, w3, b3,
+                      ws, bs)):
+        raise RuntimeError(FORWARD_ONLY.format(name="fused_residual_block"))
     if x.device.type == "cpu":
         return resblock_reference(x, t_proj, c_proj, g1, be1, w1, b1, g2, be2,
                                   w2, b2, g3, be3, w3, b3, ws, bs)

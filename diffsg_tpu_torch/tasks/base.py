@@ -4,7 +4,7 @@ Counterpart of ``diffsg_tpu/tasks/base.py``: ``Task``, ``CKPT_CONFIG_KEYS``
 and ``merge_ckpt_config``, ``refine_solutions``, ``select_best``, and the
 eval loop ``sample_solutions``, ``sample_best_of_n``, ``objective_metrics``
 and ``evaluate``. ``tasks.msr``, ``tasks.co``, ``tasks.nu`` and
-``tasks.multi`` provide the instances. ``Task.train_config`` is not ported.
+``tasks.multi`` provide the instances.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from ..diffusion.ddpm import SampleTrace, cfg_sample
 from ..diffusion.schedule import Schedule
 from ..models.unet1d_fused import unet_apply_fn
 from ..ops.refine import projected_refine
+from ..train.trainer import TrainConfig
 from ..utils.params import params_from_jax
 
 
@@ -38,6 +39,9 @@ class Task:
     X_unnorm, config, valid_mask=None)``: an optional decoder that also sees
     the unnormalized conditions; where given, the sampling paths use it in
     place of ``decode``.
+
+    ``train_config``: the reference's training hyperparameters for the task
+    (``train.train_ddpm`` takes them).
 
     ``extra_metrics(Y_dec, Y_true, pred, true, config)``: optional
     task-specific metrics (numpy in, floats out). ``project(Y_dec,
@@ -59,6 +63,7 @@ class Task:
     unnormalize_y: Callable[[np.ndarray, Dict], np.ndarray]
     data_dim: Callable[[Dict], int]
     cond_dim: Callable[[Dict], int]
+    train_config: TrainConfig
     higher_is_better: bool = True
     default_omega: float = 500.0
     decode_with_x: Optional[Callable[..., torch.Tensor]] = None

@@ -20,6 +20,7 @@ from ..data.loaders import load_co
 from ..models.unet1d import unet_co
 from ..ops.decoders import co_decode
 from ..ops.objectives import co_cost
+from ..train.trainer import TrainConfig
 from .base import Task
 
 
@@ -80,6 +81,7 @@ CO = Task(
     unnormalize_y=_unnorm_y,
     data_dim=lambda cfg: cfg["node_num"],
     cond_dim=lambda cfg: 3 * cfg["node_num"],
+    train_config=TrainConfig(epochs=200, lr=5e-3, milestones=(15, 80, 150)),
     higher_is_better=False,
     default_omega=500.0,
     extra_metrics=_extra_metrics,

@@ -17,6 +17,7 @@ from ..data.loaders import load_msr, load_msr_budget
 from ..models.unet1d import unet_msr
 from ..ops.decoders import masked_min_max, msr_decode, msr_simplex_project
 from ..ops.objectives import msr_sum_rate
+from ..train.trainer import TrainConfig
 from .base import Task, select_best
 
 __all__ = ["MSR", "MSR_BUDGET", "MSR_TEMP", "MSR_WF", "Task"]
@@ -103,6 +104,7 @@ MSR = Task(
     unnormalize_y=_unnorm_y,
     data_dim=lambda cfg: cfg["M"],
     cond_dim=lambda cfg: cfg["M"],
+    train_config=TrainConfig(epochs=200, lr=5e-3, milestones=(100, 150)),
     higher_is_better=True,
     default_omega=500.0,
     project=_project,

@@ -23,6 +23,7 @@ from ..data.loaders import load_nu, load_nu_budget, load_nu_geo
 from ..models.unet1d import unet_nu
 from ..ops.decoders import _by_column, msr_simplex_project, nu_decode, nu_direct_decode
 from ..ops.objectives import nu_rate
+from ..train.trainer import TrainConfig
 from .base import Task
 
 
@@ -95,6 +96,7 @@ NU = Task(
     unnormalize_y=_unnorm_y,
     data_dim=lambda cfg: 2 + cfg["K"],
     cond_dim=lambda cfg: 2 * cfg["K"],
+    train_config=TrainConfig(epochs=200, lr=4e-3, milestones=(80, 200)),
     higher_is_better=True,
     default_omega=500.0,
     project=_project,

@@ -1,4 +1,4 @@
-"""Carry a flax parameter tree into the port's modules.
+"""Carry a flax parameter tree into the port's modules, and back.
 
 The port's modules keep flax's names and layouts (``models/unet1d.py``):
 ``Dense`` holds ``kernel`` of shape **(in, out)** and ``bias`` (out,);
@@ -32,3 +32,23 @@ def params_from_jax(tree: Dict[str, Any], prefix: str = "") -> Dict[str, torch.T
         else:
             state[key] = torch.from_numpy(np.array(val, dtype=np.float32))
     return state
+
+
+def tree_from_state(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: a state dict (dotted names)
+    -> the flax tree of nested dicts of float32 NumPy arrays."""
+    tree: Dict[str, Any] = {}
+    for key, val in state.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = val.detach().to(device="cpu", dtype=torch.float32).numpy().copy()
+    return tree
+
+
+def params_to_jax(module: torch.nn.Module) -> Dict[str, Any]:
+    """``module``'s parameters as the flax tree ``save_checkpoint`` and
+    ``params_from_jax`` take (float32 NumPy; no transposes, the layouts are
+    flax's)."""
+    return tree_from_state(module.state_dict())

@@ -238,18 +238,19 @@ def test_cuda_mega_wrapper_rejects_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     model, (y, t, c, m) = mega_inputs("nu", 37, seed=1, device="cuda")
-    with pytest.raises(ValueError, match="batch-1 time"):
-        unet_forward_mega(model, y, t.expand(37).contiguous(), c, m)
-    with pytest.raises(TypeError, match="packed as"):
-        unet_forward_mega(model, y, t, c, m, packed=pack_params(model, torch.bfloat16))
-    with pytest.raises(ValueError, match="tile_rows"):
-        launch_mega(pack_params(model), *mega_kernel_inputs(model, y, t, c, m), tile_rows=8)
-    bf = [a.bfloat16() for a in (y, t, c, m)]
-    with pytest.raises(ValueError, match="tile_rows"):
-        launch_mega(pack_params(model, torch.bfloat16),
-                    *mega_kernel_inputs(model, *bf, torch.bfloat16), tile_rows=16)
-    with pytest.raises(ValueError, match="is on"):
-        unet_forward_mega(model, y, t.cpu(), c, m)
+    with torch.no_grad():          # the wrapper is forward-only
+        with pytest.raises(ValueError, match="batch-1 time"):
+            unet_forward_mega(model, y, t.expand(37).contiguous(), c, m)
+        with pytest.raises(TypeError, match="packed as"):
+            unet_forward_mega(model, y, t, c, m, packed=pack_params(model, torch.bfloat16))
+        with pytest.raises(ValueError, match="tile_rows"):
+            launch_mega(pack_params(model), *mega_kernel_inputs(model, y, t, c, m), tile_rows=8)
+        bf = [a.bfloat16() for a in (y, t, c, m)]
+        with pytest.raises(ValueError, match="tile_rows"):
+            launch_mega(pack_params(model, torch.bfloat16),
+                        *mega_kernel_inputs(model, *bf, torch.bfloat16), tile_rows=16)
+        with pytest.raises(ValueError, match="is on"):
+            unet_forward_mega(model, y, t.cpu(), c, m)
 
 
 @pytest.mark.cuda
@@ -493,3 +494,72 @@ def test_cuda_multi_forward_matches_plain_and_counts_launches(ckpt, face, backen
         ref = unet_apply_fn(model, "plain")(y, t, c, m)
     assert counter.LAUNCHES == before + per_forward
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+def _train_inputs(steps, B, seed):
+    """A small net's data and every draw of one epoch of ``steps`` batches."""
+    from diffsg_tpu_torch.train import EpochDraws
+
+    rng = np.random.default_rng(seed)
+    n = steps * B
+    X, Y = rng.uniform(0, 1, (n, 3)), rng.dirichlet(np.ones(3), n)
+    draws = EpochDraws(torch.as_tensor(rng.permutation(n)),
+                       torch.as_tensor(rng.integers(0, 10, (steps, B))),
+                       torch.as_tensor(rng.normal(size=(steps, B, 3)).astype(np.float32)),
+                       torch.as_tensor((rng.uniform(size=(steps, B, 1)) >= 0.1)
+                                       .astype(np.float32)))
+    return X, Y, draws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_clip", [None, 0.05])
+def test_cuda_train_steps_match_cpu(grad_clip):
+    """Three train steps on the card equal the same steps on the CPU (one
+    init, injected draws, TF32 off). The spread of the port against the JAX
+    package on the CPU on this net is 1.4e-6 after 12 steps
+    (tests/test_torch_train.py); the bound is 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diffsg_tpu_torch.train import TrainConfig, torch_style_init, train_ddpm
+    from diffsg_tpu_torch.utils import params_from_jax, params_to_jax
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X, Y, draws = _train_inputs(3, 64, seed=0)
+    cfg = TrainConfig(epochs=1, batch_size=64, T=10, milestones=(100,), grad_clip=grad_clip)
+    net = lambda: UNet1D(input_dim=3, proj_dim=16, cond_dim=3, dims=(8, 4), n_blocks=1)
+    init = params_to_jax(torch_style_init(net(), torch.Generator().manual_seed(0)))
+    out = {}
+    for device in ("cpu", "cuda"):
+        logs = []
+        params, _, _ = train_ddpm(net(), X, Y, cfg, init_params=init, log_every=1,
+                                  log_fn=logs.append, device=device, draws=lambda e: draws)
+        out[device] = (float(logs[0].rsplit(" ", 1)[1]), params_from_jax(params))
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for k, cpu in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_under_grad():
+    """The kernels are forward-only: under autograd each wrapper raises on
+    the card, as on the CPU, instead of returning an output without a
+    gradient; under no_grad they run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diffsg_tpu_torch.models import unet_apply_fn
+    from diffsg_tpu_torch.ops.resblock import resblock_params_tuple
+
+    model, (y, t, c, m) = mega_inputs("msr", 64, seed=3, device="cuda")
+    res = model.middle.res1
+    x = torch.randn(64, res.lin1.kernel.shape[0], device="cuda")
+    args = (x, res.time_emb(torch.randn(1, res.time_emb.kernel.shape[0], device="cuda")),
+            res.cond_emb(torch.randn(64, res.cond_emb.kernel.shape[0], device="cuda")),
+            *resblock_params_tuple(res))
+    for fn in (lambda: fused_residual_block(*args), lambda: unet_forward_mega(model, y, t, c, m),
+               lambda: unet_apply_fn(model, "fused")(y, t, c, m)):
+        with pytest.raises(RuntimeError, match="forward-only"):
+            fn()
+    with torch.no_grad():
+        assert torch.isfinite(unet_forward_mega(model, y, t, c, m)).all()
+        assert torch.isfinite(fused_residual_block(*[a.detach() if a is not None else None
+                                                     for a in args])).all()

@@ -320,18 +320,19 @@ def test_pack_params_refuses_a_net_too_wide_for_any_tile(dtype):
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     model = unet_nu(3)
     y, t, c, m = _torch(_inputs(8, 5, 6))
-    with pytest.raises(ValueError, match="batch-1 time"):
-        unet_forward_mega(model, y, t.expand(8).contiguous(), c, m)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        unet_forward_mega(model, y, t, c, m, compute_dtype=torch.float16)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        pack_params(model, torch.float64)
-    with pytest.raises(ValueError, match="do not fit"):
-        unet_forward_mega(model, y[:, :3], t, c, m)
-    with pytest.raises(ValueError, match="multiples of 4"):
-        pack_params(UNet1D(input_dim=5, proj_dim=30, cond_dim=6, dims=(32, 16, 8)))
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        unet_forward_mega(model, *[a.to("meta") for a in (y, t, c, m)])
+    with torch.no_grad():          # the wrapper is forward-only
+        with pytest.raises(ValueError, match="batch-1 time"):
+            unet_forward_mega(model, y, t.expand(8).contiguous(), c, m)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            unet_forward_mega(model, y, t, c, m, compute_dtype=torch.float16)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            pack_params(model, torch.float64)
+        with pytest.raises(ValueError, match="do not fit"):
+            unet_forward_mega(model, y[:, :3], t, c, m)
+        with pytest.raises(ValueError, match="multiples of 4"):
+            pack_params(UNet1D(input_dim=5, proj_dim=30, cond_dim=6, dims=(32, 16, 8)))
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            unet_forward_mega(model, *[a.to("meta") for a in (y, t, c, m)])
     with pytest.raises(TypeError, match="float32 only"):
         unet_apply_fn(model, "fused", compute_dtype=torch.bfloat16)
     # Attention configs cannot be built, so no net with attention reaches

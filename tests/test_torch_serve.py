@@ -94,7 +94,7 @@ def test_entry_points_raise_without_a_card():
         Solver.from_checkpoint(str(CKPT), task="msr")
 
 
-_FORBIDDEN = re.compile(r"^(jax|flax|diffsg_tpu|pandas)(\.|$)")
+_FORBIDDEN = re.compile(r"^(jax|flax|optax|diffsg_tpu|pandas)(\.|$)")
 
 
 @pytest.mark.parametrize("path", sorted(
