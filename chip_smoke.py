@@ -54,7 +54,23 @@ their answers:
   uninterrupted run's weights bit for bit, three card steps held to the
   same steps on the CPU, and the trained checkpoints served by
   ``Solver.from_checkpoint`` through ``fused`` and ``mega``, feasible row by
-  row, each kernel's forward held to ``plain`` on the trained weights.
+  row, each kernel's forward held to ``plain`` on the trained weights;
+* the data generators (``datasets_gen``): every subcommand of the port's
+  ``tools/make_datasets.py`` at a small size, each file's SHA-256 held to
+  the JAX package's, and the native CO oracle held to the NumPy oracle;
+* the five task-specific training CLIs (``train_clis``: ``train_msr_budget``,
+  ``train_nu_budget``, ``train_nu_geo``, ``train_nu_augmented`` and
+  ``train_multi`` in the zoo's recipe at proj 256), one epoch each on those
+  files at the full width of the net each ships, then each checkpoint
+  served through ``fused`` and ``mega`` (feasible row by row) and both
+  kernels' forwards held to ``plain`` on the trained weights;
+* the proj-256 zoo ``ckpts/ddpm_multi_zoo`` (``serve_multi_zoo``): its five
+  faces at their tasks' batches on ``fused``, MSR-80c on ``mega`` too,
+  eagerly and from their buckets' graphs, and MSR-80c on ``plain``,
+  ``fused`` and ``mega`` in turns from the graphs, held to the JAX
+  package's mean quality, the forward on the three in turns; and
+  ``evaluate`` on its MSR-80c, MSR-8c and CO rows of ``tools/headline.py``
+  (``eval_zoo``), held to ``EVAL_ZOO_JAX``.
 
 The residual-block kernel is held to its plain version at every block
 shape of the MSR-3c forward (16,384 rows) and of the CO forward (65,536
@@ -174,6 +190,17 @@ QUALITY_SPECS = {
                         omega=0.5, rows=("msr", 512, 20.0, 80)),
     "multi_msr8": dict(ckpt="ddpm_multi_80", task="multi_msr8", omega=0.5,
                        rows=("msr", 512, 10.0, 8)),
+    # The five faces of the proj-256 zoo (ckpts/ddpm_multi_zoo): MSR-3c, CO,
+    # geometry-conditioned NU, MSR-80c at 20 W and MSR-8c at 10 W on one net,
+    # at the omegas of tools/headline.py's zoo rows.
+    "zoo_msr": dict(ckpt="ddpm_multi_zoo", task="multi_msr", omega=0.5, rows=("msr", 1024)),
+    "zoo_co": dict(ckpt="ddpm_multi_zoo", task="multi_co", omega=0.5, rows=("co",)),
+    "zoo_nu_geo": dict(ckpt="ddpm_multi_zoo", task="multi_nu_geo", omega=0.0,
+                       rows=("nu_geo", 4096)),
+    "zoo_msr80": dict(ckpt="ddpm_multi_zoo", task="multi_msr80", config={"W": 20.0},
+                      omega=0.5, rows=("msr", 512, 20.0, 80)),
+    "zoo_msr8": dict(ckpt="ddpm_multi_zoo", task="multi_msr8", omega=0.5,
+                     rows=("msr", 512, 10.0, 8)),
 }
 # The JAX package's mean quality per spec, noise seed 0, flax forward on the
 # CPU, and the tolerance: 4 standard errors of the difference between two
@@ -181,7 +208,8 @@ QUALITY_SPECS = {
 # less than 1e-6 of the mean (8 float32 ulps): where every draw reaches the
 # optimum (msr_refine, multi_msr, multi_msr8) the spread is float rounding
 # alone. Computed and held by tests/test_torch_co.py, test_torch_tasks.py,
-# test_torch_refine.py and test_torch_multi.py (test_*_vs_jax_constants).
+# test_torch_refine.py and test_torch_multi.py (test_*_vs_jax_constants); the
+# zoo's by tests/test_torch_zoo.py (marked slow).
 JAX_QUALITY = {
     "co": (1.0895304273581132, 0.03838794270798506),
     "co_ranked": (1.0343122543999925, 0.0027104437903954616),
@@ -200,6 +228,11 @@ JAX_QUALITY = {
     "multi_nu_geo": (0.000554529605665266, 2.2862253590615736e-08),
     "multi_msr80": (0.999599517788738, 7.5049514129841494e-06),
     "multi_msr8": (0.999994060723111, 9.99994060723111e-07),
+    "zoo_msr": (0.9999954628292471, 9.999954628292472e-07),
+    "zoo_co": (1.0016148820286617, 0.0007023933457981357),
+    "zoo_nu_geo": (0.0005544387013003416, 2.3737473563899007e-08),
+    "zoo_msr80": (0.9994912332622334, 9.945242038891176e-06),
+    "zoo_msr8": (0.9999939353438094, 9.999939353438095e-07),
 }
 # On a spec's own inputs and noise the port's mean sits far inside that
 # tolerance: guidance and refinement's accept/reject part a few rows between
@@ -222,6 +255,14 @@ DATASET_SHA256 = {
         "42d4527c0ec96f252bc6921cc9c26466bad9f307c07b45334970806b0247d27e",
     "3u_geo600x600_33mW_500samples.csv":
         "5a40ac0be2d7c261189b518415181590424d3f775ab6f042989a26ed9ebd7b9d",
+    "80c_20w_wf_10000samples.csv":
+        "c062d00c856ae09b7ce275025d38cd28a847f755a802e689179666e388ee55cd",
+    "80c_40w_wf_2000samples_ood.csv":
+        "0416be68aa2b7315b6e95faaa2a2447ad3d2ebabd43fc2c06c7b60bb6180086b",
+    "8c_10w_wf_10000samples.csv":
+        "f64ce29bfb7bd7e38ced813636653d9e19f967af0d1873929b11c32c99fdccb7",
+    "8c_20w_wf_2000samples_ood.csv":
+        "c01eb95c699cd104066a2da17c5bb02f3b524716ed67052fc448835e5456e498",
 }
 
 
@@ -267,6 +308,89 @@ EVAL_JAX = {
         "less_ratio": (1.0002458095550537, 6.478120942752427e-05),
         "avg_diff": (8.396119000053659e-08, 2.2119451143748614e-08)},
 }
+
+
+# -- eval_zoo: the zoo's rows of tools/headline.py:432-438 that the repository's
+# files reproduce (MSR-80c at 20 W, MSR-8c at 10 W, CO), as EVAL_SPECS. Their
+# constants: the mean of JAX seeds 0 and 1 and 4 standard errors, as
+# multi_co's; computed by tests/test_torch_zoo.py::test_zoo_evaluate_vs_jax_constants
+# (marked slow: two JAX evaluates of the proj-256 net over CO's 15,000 rows).
+EVAL_ZOO_SPECS = {
+    "zoo_msr80": dict(ckpt="ddpm_multi_zoo", task="multi_msr80",
+                      csv="80c_20w_wf_10000samples.csv", omega=0.5, seeds=2),
+    "zoo_msr8": dict(ckpt="ddpm_multi_zoo", task="multi_msr8",
+                     csv="8c_10w_wf_10000samples.csv", omega=0.5, seeds=2),
+    "zoo_co": dict(ckpt="ddpm_multi_zoo", task="multi_co", csv="3nodes_50000samples_new.csv",
+                   omega=0.5, seeds=2),
+}
+EVAL_ZOO_JAX = {
+    "zoo_msr80": {"less_ratio": (0.999487578868866, 3.6266963207770826e-06),
+                  "avg_diff": (-0.020825989544391632, 0.00014739764381962311)},
+    "zoo_msr8": {"less_ratio": (0.9999932050704956, 9.999932050704956e-07),
+                 "avg_diff": (-8.156935655279085e-05, 4.805893163942779e-06)},
+    "zoo_co": {"exceeded_ratio": (1.0014357566833496, 0.0003019825024290014),
+               "avg_diff": (0.0027304759714752436, 0.0005742703118042561),
+               "decision_accuracy": (0.9550333333333336, 0.006114463726825654),
+               "terrible_count": (0.0, 1.0)},
+}
+
+# -- datasets_gen: tools/make_datasets.py's subcommands at small sizes --------------
+# Each file's arguments (the port's make_datasets and the JAX package's take the
+# same) and the SHA-256 of the file the JAX package's tools/make_datasets.py
+# writes from them (NumPy 2.x on x86-64). The train_clis phase trains on them.
+DATASETS_GEN = {
+    "3c_10w_1000samples.csv": (
+        ["msr", "--samples", "1000", "--channels", "3", "--power", "10"],
+        "3d3e45bd55153470e1499a68ea8ae7fa4da8b7806a92156838e1c3d790522183"),
+    "3c_20w_500samples_ood.csv": (
+        ["msr", "--samples", "500", "--channels", "3", "--power", "20", "--seed", "1"],
+        "e081641bf4ca61c15331d0580aa56208294dd9a8f099e4231e12d3da6acde17c"),
+    "80c_20w_wf_500samples.csv": (
+        ["msr", "--samples", "500", "--channels", "80", "--power", "20", "--labels", "wf"],
+        "9cb94e59104a3d01614c37e2f8ba83e89e6c4be11e844347952c9057971821de"),
+    "80c_40w_wf_300samples_ood.csv": (
+        ["msr", "--samples", "300", "--channels", "80", "--power", "40", "--seed", "1",
+         "--labels", "wf"],
+        "3887ad3edd042790f87b24ba6662aa78a53a649c94f9ba5c81d25c5f9da9e40c"),
+    "8c_10w_wf_500samples.csv": (
+        ["msr", "--samples", "500", "--channels", "8", "--power", "10", "--labels", "wf"],
+        "0e21ca343278c48deb4e095dc3964fbd1e4c9013b6d2ee0e1f149d9b5a4832aa"),
+    "8c_20w_wf_300samples_ood.csv": (
+        ["msr", "--samples", "300", "--channels", "8", "--power", "20", "--seed", "1",
+         "--labels", "wf"],
+        "669875422fd96f6edfcc6e61df8ae92001f00d910ca6b28220287f0a19f12841"),
+    "3nodes_600samples.csv": (
+        ["co", "--samples", "600"],
+        "a4f2542d8050a823a18ec52204a863c1bc2f9a6e4c71eedfff707a1baf93006a"),
+    "3nodes_300samples_ood.csv": (
+        ["co", "--samples", "300", "--seed", "1"],
+        "aebaac576b068ffb3f5f8dbfa358418b8dc8224c98916b9b615ca627d640a5c9"),
+    "3u_18mW_400samples.csv": (
+        ["nu", "--samples", "400", "--grid-step", "8"],
+        "328d592b63f06acfba6db45429432182ef011bd566057b327e18efcd2c1e35ec"),
+    "3u_18mW_3samples_numpy.csv": (
+        ["nu", "--samples", "3", "--grid-step", "8", "--no-native"],
+        "f534f79bde35544e90e488f1fc30888b9e4edafba36d58f963fbb24227abdfda"),
+    "3u_30mW_200samples_ood.csv": (
+        ["nu", "--samples", "200", "--power", "30", "--seed", "1", "--grid-step", "8"],
+        "165518fa0c9aa885a9a121a8f1966f8cc0b103da6f99ca898480ea58748ce8e0"),
+    "3u_geo480x360_21mW_150samples.csv": (
+        ["nu", "--samples", "150", "--power", "21", "--width", "480", "--height", "360",
+         "--seed", "7", "--grid-step", "8"],
+        "d499716b8698ee340b6963a9ac59d8ec607763137a5ea03a7703b7e239846b48"),
+    "3u_budget9-36_400samples.csv": (
+        ["nu-budget", "--samples", "400", "--budget-step", "3", "--grid-step", "8"],
+        "6d33f2d54c8ef65484eeb878013fac3d37849ed8c9f2f6652e2dae7d3250c6de"),
+    "3u_geo200-600_400samples.csv": (
+        ["nu-geo", "--samples", "400", "--geom-step", "200", "--grid-step", "8"],
+        "b561d0ecbef61df4ea7e5101d9dcec99a964eae66d2564aafd9548fdd197e9b1"),
+    "3u_geo_focus_300samples.csv": (
+        ["nu-geo", "--samples", "300", "--geom-step", "200", "--focus-frac", "0.5",
+         "--focus-geom-min", "280", "--focus-geom-max", "520", "--focus-geom-step", "120",
+         "--grid-step", "8", "--seed", "1"],
+        "6b98777cd57d28458488fe55e745a08f3fdf0b0c88c1da73cfcd8da74c9a10ce"),
+}
+GEN_DIR = os.path.join(REPO, "build", "datasets_gen")
 
 
 def co_rows():
@@ -405,6 +529,36 @@ TRAIN_CHECK_STEPS = 3
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_PARAM_ATOL = 1e-4
 TRAIN_PARAM_SHARE = 1e-4
+
+
+def check_feasible(kind: str, config, S, Xu, what: str) -> None:
+    """Every row of the solutions ``S`` finite and inside its task's
+    feasible set, on the unnormalized conditions ``Xu`` (NumPy): CO shares
+    >= 0 summing to 1 (or 0: no node offloads); MSR powers >= 0 summing to
+    W; NU (``kind`` "nu_budget", "nu_geo" or "nu") the UAV inside the field
+    (each row's own for "nu_geo") and powers >= 0 on the row's budget (the
+    config's P_sum where the condition carries none)."""
+    check(bool(np.isfinite(S).all()), f"{what}: finite solutions")
+    if kind == "co":
+        sums = S.sum(axis=1)
+        check(bool((S >= 0).all()), f"{what}: shares >= 0")
+        gap = float(np.where(sums == 0, 0.0, np.abs(sums - 1.0)).max())
+        check(gap <= 1e-5, f"{what}: offloaded shares sum to 1 within 1e-5, off by {gap}")
+    elif kind == "msr":
+        W = config["W"]
+        check(bool((S >= 0).all()), f"{what}: p >= 0")
+        gap = float(np.abs(S.sum(axis=1) - W).max())
+        check(gap <= 1e-4 * W, f"{what}: |sum p - W| = {gap}")
+    else:
+        K = config["K"]
+        box = (Xu[:, 2 * K + 1:2 * K + 3] if kind == "nu_geo"
+               else np.array([[config["width"], config["height"]]]))
+        budget = Xu[:, 2 * K] if Xu.shape[1] > 2 * K else np.full(len(S), config["P_sum"])
+        check(bool(((S[:, :2] >= 0) & (S[:, :2] <= box * (1 + 1e-6))).all()),
+              f"{what}: UAV inside each row's own field")
+        check(bool((S[:, 2:] >= 0).all()), f"{what}: p >= 0")
+        gap = float((np.abs(S[:, 2:].sum(axis=1) - budget) / budget).max())
+        check(gap <= 1e-4, f"{what}: powers off their row's budget by {gap} (relative)")
 
 
 def train_phase(dev):
@@ -635,6 +789,219 @@ def train_phase(dev):
                                           **{f"{b}_max_abs_err": e for b, e in errs.items()}},
                    seconds=time.perf_counter() - t_net)
         fields[name] = row
+    return fields, launches
+
+
+def datasets_gen_phase():
+    """The ``datasets_gen`` phase: every ``make_datasets`` subcommand of the
+    port at a small size (``DATASETS_GEN``) into ``build/datasets_gen``,
+    each file's SHA-256 held to the one the JAX package's CLI writes from the
+    same arguments; then the native CO oracle (built here by g++) held to the
+    NumPy oracle's labels of the CO file. Returns the phase's fields."""
+    import contextlib
+    import io
+    import shutil
+
+    from diffsg_tpu_torch.data.native import co_oracle_native
+    from diffsg_tpu_torch.tools import make_datasets
+
+    shutil.rmtree(GEN_DIR, ignore_errors=True)
+    t_all = time.perf_counter()
+    files = {}
+    for name, (argv, want) in DATASETS_GEN.items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):     # the CLI's progress lines
+            path = make_datasets.main(argv + ["--out", os.path.join(GEN_DIR, name)])
+        got = hashlib.sha256(path.read_bytes()).hexdigest()
+        check(got == want, f"datasets_gen {name}: SHA-256 {got}, the JAX package's file {want}")
+        files[name] = {"argv": " ".join(argv), "s": time.perf_counter() - t0, "sha256": got}
+    data = np.loadtxt(os.path.join(GEN_DIR, "3nodes_600samples.csv"), delimiter=",")
+    feats = np.concatenate([data[:, k:18:6] for k in range(5)], axis=1)
+    t0 = time.perf_counter()
+    native = co_oracle_native(feats)
+    native_s = time.perf_counter() - t0
+    err = float(np.abs(native[:, 1:] - data[:, 19:22]).max())
+    check(np.array_equal(native[:, 0], data[:, 18]) and err <= 1e-12,
+          f"datasets_gen: the native CO oracle's labels against the NumPy oracle's "
+          f"(classes equal: {np.array_equal(native[:, 0], data[:, 18])}, shares off by {err})")
+    return {"files": files, "seconds": time.perf_counter() - t_all,
+            "co_oracle_native": {"rows": int(len(data)), "s": native_s,
+                                 "classes_equal": True, "max_share_err": err}}
+
+
+# -- train_clis: the five task-specific training CLIs on the card ------------------
+# Each at the full width of the net it ships (ckpts/ddpm_msr_budget: proj 128,
+# dims 64-32-16-8; nu_budget and nu_augmented: unet_nu; ddpm_nu_geo_x0f: proj 64,
+# dims 64-32-16; the zoo: proj 256, dims 256-128-64-32, canvas 80) and its
+# recipe's flags, on the datasets_gen files, one epoch. Cut: the epochs (1 of
+# 100-200), the rows (the datasets_gen files, --samples, --msr80-samples,
+# --msr8-samples: PERF.md section 4) and the eval sets (datasets_gen's). Each
+# trained checkpoint is then served at ``serve_B`` on the ``rows`` of
+# quality_rows (``cols`` of them) with ``config``, as ``task``.
+def train_cli_specs():
+    def g(name):
+        return os.path.join(GEN_DIR, name)
+
+    nu_eval = ["--indist", g("3u_18mW_400samples.csv"), "--ood", g("3u_30mW_200samples_ood.csv")]
+    return {
+        "msr_budget": dict(
+            module="train_msr_budget", task="msr_budget", rows=("msr", 1024, 5.0),
+            config={"W": 5.0}, serve_B=SERVE_B, kind="msr",
+            argv=["--samples", "16384", "--lr", "2e-3", "--milestones", "30", "60",
+                  "--epochs", "1", "--omegas", "1.0", "--indist", g("3c_10w_1000samples.csv"),
+                  "--ood", g("3c_20w_500samples_ood.csv")]),
+        "nu_budget": dict(
+            module="train_nu_budget", task="nu_budget", rows=("nu_budget", 4096, 30.0),
+            config={"P_sum": 30.0}, serve_B=MULTI_NU_B, kind="nu_budget",
+            argv=["--budget-dataset", g("3u_budget9-36_400samples.csv"), "--times", "16",
+                  "--lr", "4e-3", "--milestones", "80", "200", "--epochs", "1",
+                  "--omegas", "0.125", *nu_eval]),
+        "nu_geo": dict(
+            module="train_nu_geo", task="nu_geo", rows=("nu_geo", 4096), serve_B=MULTI_NU_B,
+            kind="nu_geo",
+            argv=["--geo-dataset", g("3u_geo200-600_400samples.csv"),
+                  g("3u_geo_focus_300samples.csv"), "--budget-dataset",
+                  g("3u_budget9-36_400samples.csv"), "--with-ref-indist", "--times", "8",
+                  "--proj-dim", "64", "--dims", "64", "32", "16", "--parameterization", "x0",
+                  "--lr", "2e-3", "--milestones", "80", "200", "--epochs", "1",
+                  "--omegas", "0.5", *nu_eval]),
+        "nu_augmented": dict(
+            module="train_nu_augmented", task="nu_direct", rows=("nu_budget", 4096, 18.0),
+            cols=6, serve_B=MULTI_NU_B, kind="nu",
+            argv=["--dataset", g("3u_18mW_400samples.csv"), "--ood",
+                  g("3u_30mW_200samples_ood.csv"), "--times", "32", "--y-scale", "8",
+                  "--center", "--epochs", "1", "--omegas", "0.125"]),
+        "multi": dict(
+            module="train_multi", task="multi_msr80", rows=("msr", 512, 20.0, 80),
+            config={"W": 20.0}, serve_B=SERVE_B, kind="msr",
+            argv=["--nu-mode", "geo", "--with-msr80", "--with-msr8", "--proj-dim", "256",
+                  "--dims", "256", "128", "64", "32", "--lr", "5e-4", "--milestones", "90",
+                  "160", "--grad-clip", "0.25", "--parameterization", "x0", "--epochs", "1",
+                  "--msr-dataset", g("3c_10w_1000samples.csv"),
+                  "--co-dataset", g("3nodes_600samples.csv"),
+                  "--nu-dataset", g("3u_18mW_400samples.csv"),
+                  "--nu-budget-dataset", g("3u_budget9-36_400samples.csv"),
+                  "--nu-geo-datasets", g("3u_geo200-600_400samples.csv"),
+                  g("3u_geo_focus_300samples.csv"),
+                  "--msr80-samples", "4096", "--msr8-samples", "2048",
+                  "--msr-ood", g("3c_20w_500samples_ood.csv"),
+                  "--co-ood", g("3nodes_300samples_ood.csv"),
+                  "--nu-ood", g("3u_30mW_200samples_ood.csv"),
+                  "--msr80-evals", g("80c_20w_wf_500samples.csv"),
+                  g("80c_40w_wf_300samples_ood.csv"),
+                  "--msr8-evals", g("8c_10w_wf_500samples.csv"),
+                  g("8c_20w_wf_300samples_ood.csv"),
+                  "--nu-geo-evals", g("3u_geo480x360_21mW_150samples.csv")]),
+    }
+
+
+def train_clis_phase(dev):
+    """The ``train_clis`` phase: each CLI of ``train_cli_specs`` in this
+    process on the card (its log, checkpoint and eval lines under
+    build/train_clis), its losses and eval metrics finite; the checkpoint
+    served by ``Solver.from_checkpoint`` through ``fused`` and ``mega`` f32,
+    one request each, launches counted, every row feasible; both kernels'
+    forwards held to ``plain`` on the trained weights. Returns (fields,
+    {"fused": n, "mega": n}): the serving launches."""
+    import contextlib
+    import importlib
+    import io
+    import shutil
+
+    import torch
+
+    from diffsg_tpu_torch.models import unet_apply_fn
+    from diffsg_tpu_torch.models.unet1d import ResidualBlock
+    from diffsg_tpu_torch.ops import mega, resblock
+    from diffsg_tpu_torch.serve import Solver
+    from diffsg_tpu_torch.train import TrainConfig
+    from diffsg_tpu_torch.utils import load_checkpoint
+
+    out_root = os.path.join(REPO, "build", "train_clis")
+    shutil.rmtree(out_root, ignore_errors=True)
+    fields, launches = {}, {"fused": 0, "mega": 0}
+    for name, spec in train_cli_specs().items():
+        t_cli = time.perf_counter()
+        out = os.path.join(out_root, name)
+        module = importlib.import_module(f"diffsg_tpu_torch.tools.{spec['module']}")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            module.main(spec["argv"] + ["--out", out])
+        cli_s = time.perf_counter() - t_cli
+        log = [json.loads(line) for line in open(os.path.join(out, "train_log.jsonl"))]
+        start = next(r for r in log if r["event"] == "start")
+        losses = [float(r["msg"].rsplit(" ", 1)[1]) for r in log if r["event"] == "train"]
+        train_s = next(r for r in log if r["event"] == "saved")["train_seconds"]
+        meta = json.load(open(os.path.join(out, "metadata.json")))
+        check(start["device"] == torch.cuda.get_device_name(dev),
+              f"train_clis {name}: trained on {start['device']}")
+        check(len(losses) == 1 and bool(np.isfinite(losses).all()),
+              f"train_clis {name}: a finite loss for the epoch, got {losses}")
+        evals = [json.loads(line) for line in printed.getvalue().splitlines()
+                 if line.startswith('{"split"')]
+        check(bool(evals) and all(np.isfinite(v) for e in evals for v in e.values()
+                                  if isinstance(v, float)),
+              f"train_clis {name}: finite eval metrics, got {evals}")
+        # train_nu_augmented's metadata records no config: its task's batch.
+        batch = meta.get("config", {}).get("batch_size", TrainConfig.batch_size)
+        epochs = load_checkpoint(out, device="cpu")["step"]
+        steps = start["rows"] // batch
+        row = {"argv": " ".join(a if not a.startswith(REPO) else os.path.relpath(a, REPO)
+                                for a in spec["argv"]),
+               "rows": start["rows"], "steps": steps, "epoch_losses": losses,
+               "train_seconds": train_s, "epoch_s": train_s / epochs,
+               "steps_per_s": steps * epochs / train_s,
+               "cli_s": cli_s, "evals": evals}
+
+        # Served through both kernels.
+        X = quality_rows(spec["rows"])[:, :spec.get("cols")]
+        X = np.concatenate([X] * (spec["serve_B"] // X.shape[0]))
+        served = {}
+        for backend in ("fused", "mega"):
+            solver = Solver.from_checkpoint(out, task=spec["task"], backend=backend, device=dev,
+                                            dataset_config=spec.get("config"))
+            model = solver.model
+            net = getattr(model, "inner", model)
+            blocks = sum(isinstance(m, ResidualBlock) for m in net.modules())
+            want = solver.sched.T * (blocks if backend == "fused" else 1)
+            resblock.LAUNCHES = mega.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            S = solver.solve(X, seed=0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = resblock.LAUNCHES if backend == "fused" else mega.LAUNCHES
+            other = mega.LAUNCHES if backend == "fused" else resblock.LAUNCHES
+            check(got == want and other == 0, f"train_clis {name} serve {backend}: {want} "
+                                              f"launches and no other, counted {got}, {other}")
+            launches[backend] += got
+            Xu = np.asarray(solver.task.unnormalize_x(X, solver.config), np.float32)
+            check(S.shape[0] == spec["serve_B"], f"train_clis {name}: {S.shape[0]} rows served")
+            check_feasible(spec["kind"], solver.config, S, Xu, f"train_clis {name} {backend}")
+            served[backend] = {"B": spec["serve_B"], "s": seconds, "launches": got}
+
+        # Both kernels' forwards against plain on the trained weights.
+        rows = ROWS
+        frng = np.random.default_rng(2)
+        C = getattr(model, "payload_dim", None) or net.cond_dim
+        y = torch.tensor(frng.normal(size=(rows, net.input_dim)), dtype=torch.float32,
+                         device=dev)
+        c = torch.tensor(frng.uniform(0, 1, (rows, C)), dtype=torch.float32, device=dev)
+        m = torch.cat([torch.zeros(rows // 2, 1), torch.ones(rows // 2, 1)]).to(dev)
+        t = torch.full((1,), 0.37, device=dev)
+        with torch.no_grad():
+            plain = unet_apply_fn(model, "plain")(y, t, c, m)
+            scale = float(plain.abs().max())
+            errs = {b: float((unet_apply_fn(model, b)(y, t, c, m) - plain).abs().max())
+                    for b in ("fused", "mega")}
+        for backend, err in errs.items():
+            check(err <= FORWARD_RTOL * scale, f"train_clis {name}: {backend} forward on the "
+                                               f"trained weights, max abs err {err} vs {scale}")
+        row.update(serve=served, forward={"rows": rows, "out_max_abs": scale,
+                                          **{f"{b}_max_abs_err": e for b, e in errs.items()}},
+                   seconds=time.perf_counter() - t_cli)
+        fields[name] = row
+        torch.cuda.empty_cache()
     return fields, launches
 
 
@@ -1396,29 +1763,7 @@ def main() -> int:
         return steps * len(block_shapes(getattr(base.model, "inner", base.model))[0])
 
     def feasible(name, base, S, Xu):
-        """Every row finite and inside its task's feasible set."""
-        check(bool(np.isfinite(S).all()), f"{name}: finite solutions")
-        kind = QUALITY_SPECS[name]["rows"][0]
-        if kind == "co":
-            sums = S.sum(axis=1)
-            check(bool((S >= 0).all()), f"{name}: shares >= 0")
-            gap = float(np.where(sums == 0, 0.0, np.abs(sums - 1.0)).max())
-            check(gap <= 1e-5, f"{name}: offloaded shares sum to 1 within 1e-5, off by {gap}")
-        elif kind == "msr":
-            W = base.config["W"]
-            check(bool((S >= 0).all()), f"{name}: p >= 0")
-            gap = float(np.abs(S.sum(axis=1) - W).max())
-            check(gap <= 1e-4 * W, f"{name}: |sum p - W| = {gap}")
-        else:
-            K = base.config["K"]
-            box = (Xu[:, 2 * K + 1:2 * K + 3] if kind == "nu_geo"
-                   else np.array([[base.config["width"], base.config["height"]]]))
-            budget = Xu[:, 2 * K]
-            check(bool(((S[:, :2] >= 0) & (S[:, :2] <= box * (1 + 1e-6))).all()),
-                  f"{name}: UAV inside each row's own field")
-            check(bool((S[:, 2:] >= 0).all()), f"{name}: p >= 0")
-            gap = float((np.abs(S[:, 2:].sum(axis=1) - budget) / budget).max())
-            check(gap <= 1e-4, f"{name}: powers off their row's budget by {gap} (relative)")
+        check_feasible(QUALITY_SPECS[name]["rows"][0], base.config, S, Xu, name)
 
     def serve_spec(name, backend, B, seeds, refine=None, bf16=False, held_to="spec"):
         """Serve spec ``name`` at B rows on ``backend``: eagerly and from the
@@ -1652,8 +1997,11 @@ def main() -> int:
     # at 20 W and MSR-8c at 10 W, float32 only, on plain, fused and mega in
     # turns, each from its bucket's graph: which backend serves this net.
     turns = ("plain", "fused", "mega", "mega", "fused", "plain")
-    m80_out = {}
-    for name in ("multi_msr80", "multi_msr8"):
+
+    def serve_turns(name):
+        """Spec ``name`` at SERVE_B rows from its bucket's graph on plain,
+        fused and mega in ``turns``, each request feasible and held to the
+        JAX constant. Returns the row."""
         base = spec_solver(name, "plain")
         X = spec_rows(name, SERVE_B)
         Xu_t = torch.tensor(np.asarray(base.task.unnormalize_x(X, base.config), np.float32),
@@ -1685,23 +2033,26 @@ def main() -> int:
                       f"{name} {b} seed {r['seed']}: mean quality {r['quality']} vs the JAX "
                       f"package's {mean} (+-{tol})")
             reqs_by[b] += reqs
-        m80_out[name] = {
+        row = {
             "B": SERVE_B, "T": base.sched.T, **kw, "jax_quality": mean, "tol": tol,
             "capture_s": capture_s, "launches_per_request": {
                 b: per_request(name, base, b) for b in solvers},
             **{b: {"solutions_per_s": SERVE_B / float(np.median([r["s"] for r in reqs])),
                    "requests": [{k: r[k] for k in ("seed", "s", "quality")} for r in reqs]}
-               for b, reqs in reqs_by.items()},
-            "vs_jax": vs_jax(name)}
+               for b, reqs in reqs_by.items()}}
         del solvers, reqs_by
         torch.cuda.empty_cache()
+        return row
+
+    m80_out = {name: {**serve_turns(name), "vs_jax": vs_jax(name)}
+               for name in ("multi_msr80", "multi_msr8")}
     m80_out["forward"] = {"rows": ROWS, **forward_turns(spec_solver("multi_msr80", "plain").model,
                                                         ROWS, turns)}
     emit("serve_multi_80", **m80_out)
 
     # -- eval: tasks.base.evaluate on the repository's data ------------------------
     # datasets/ is not committed: its CSVs are remade from their recipes where
-    # missing (data.generators.ensure_datasets), and their SHA-256 are held
+    # missing (data.datasets.ensure_datasets), and their SHA-256 are held
     # against the files the JAX constants were computed on. evaluate runs the
     # Solver's default backend (fused), 512 rows a batch.
     from diffsg_tpu_torch.data import ensure_datasets
@@ -1713,34 +2064,44 @@ def main() -> int:
     eval_out = {"datasets_s": time.perf_counter() - t0, "sha256_match": {
         n: hashlib.sha256(p.read_bytes()).hexdigest() == DATASET_SHA256[n]
         for n, p in paths.items()}}
-    for name, spec in EVAL_SPECS.items():
-        ck = load_checkpoint(os.path.join(REPO, "ckpts", spec["ckpt"]), device=dev)
-        task = TASKS[spec["task"]]
-        data = task.load(str(paths[spec["csv"]]), **spec.get("load_kw", {}))
-        merge_multi_config(data.config, ck["metadata"], spec["task"].split("_", 1)[1])
-        zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        best_of = spec.get("best_of", 1)
-        metrics = evaluate(task, ck["params"], ck["sched"], data, omega=spec["omega"], seed=0,
-                           best_of=best_of)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        n = data.X_test.shape[0]
-        want = -(-n // 512) * best_of * ck["sched"].T * 27
-        check(resblock.LAUNCHES == want and mega.LAUNCHES == 0,
-              f"eval {name}: {want} fused launches, counted {resblock.LAUNCHES} and "
-              f"{mega.LAUNCHES} mega")
-        new_launches["fused"] += resblock.LAUNCHES
-        check(metrics["n_samples"] == n, f"eval {name}: {metrics['n_samples']} rows, not {n}")
-        for k, (mean, tol) in EVAL_JAX[name].items():
-            check(np.isfinite(metrics[k]) and abs(metrics[k] - mean) <= tol,
-                  f"eval {name}: {k} {metrics[k]} vs the JAX package's {mean} (+-{tol})")
-        eval_out[name] = {"rows": n, "omega": spec["omega"], "seconds": seconds,
-                          "rows_per_s": n / seconds, "launches": resblock.LAUNCHES,
-                          "metrics": metrics, "jax": EVAL_JAX[name],
-                          "diff_over_tol": {k: abs(metrics[k] - m) / t
-                                            for k, (m, t) in EVAL_JAX[name].items()}}
+    check(all(eval_out["sha256_match"].values()),
+          f"eval: datasets/ remade as the JAX package makes them {eval_out['sha256_match']}")
+
+    def eval_rows(specs, constants):
+        """``evaluate`` (fused, 512 rows a batch) per spec on its CSV, each
+        metric held to the JAX package's constant."""
+        out = {}
+        for name, spec in specs.items():
+            ck = load_checkpoint(os.path.join(REPO, "ckpts", spec["ckpt"]), device=dev)
+            task = TASKS[spec["task"]]
+            data = task.load(str(paths[spec["csv"]]), **spec.get("load_kw", {}))
+            merge_multi_config(data.config, ck["metadata"], spec["task"].split("_", 1)[1])
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            best_of = spec.get("best_of", 1)
+            metrics = evaluate(task, ck["params"], ck["sched"], data, omega=spec["omega"],
+                               seed=0, best_of=best_of)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            n = data.X_test.shape[0]
+            want = -(-n // 512) * best_of * ck["sched"].T * 27
+            check(resblock.LAUNCHES == want and mega.LAUNCHES == 0,
+                  f"eval {name}: {want} fused launches, counted {resblock.LAUNCHES} and "
+                  f"{mega.LAUNCHES} mega")
+            new_launches["fused"] += resblock.LAUNCHES
+            check(metrics["n_samples"] == n, f"eval {name}: {metrics['n_samples']} rows, not {n}")
+            for k, (mean, tol) in constants[name].items():
+                check(np.isfinite(metrics[k]) and abs(metrics[k] - mean) <= tol,
+                      f"eval {name}: {k} {metrics[k]} vs the JAX package's {mean} (+-{tol})")
+            out[name] = {"rows": n, "omega": spec["omega"], "seconds": seconds,
+                         "rows_per_s": n / seconds, "launches": resblock.LAUNCHES,
+                         "metrics": metrics, "jax": constants[name],
+                         "diff_over_tol": {k: abs(metrics[k] - m) / t
+                                           for k, (m, t) in constants[name].items()}}
+        return out
+
+    eval_out.update(eval_rows(EVAL_SPECS, EVAL_JAX))
     emit("eval", **eval_out)
 
     # -- train: training on the card, and the trained nets served --------------------
@@ -1748,6 +2109,39 @@ def main() -> int:
     for backend, count in train_launches.items():
         new_launches[backend] += count
     emit("train", **train_out)
+
+    # -- datasets_gen: make_datasets' subcommands on this host -------------------------
+    emit("datasets_gen", **datasets_gen_phase())
+
+    # -- train_clis: the five task-specific training CLIs, their nets served -----------
+    clis_out, clis_launches = train_clis_phase(dev)
+    for backend, count in clis_launches.items():
+        new_launches[backend] += count
+    emit("train_clis", **clis_out)
+
+    # -- serve_multi_zoo: ckpts/ddpm_multi_zoo's five faces ----------------------------
+    # Each face at its task's batch on fused (the zoo's backend), eagerly and
+    # from its bucket's graph; MSR-80c on mega f32 too, and on plain, fused
+    # and mega in turns from the graphs; each request's mean quality held to
+    # the JAX constant; then the forward on plain, fused and mega in turns.
+    zoo_out = {}
+    for name, B in (("zoo_msr80", SERVE_B), ("zoo_msr8", SERVE_B), ("zoo_msr", SERVE_B),
+                    ("zoo_co", CO_B), ("zoo_nu_geo", MULTI_NU_B)):
+        zoo_out[name] = {}
+        for backend in (("fused", "mega") if name == "zoo_msr80" else ("fused",)):
+            row = serve_spec(name, backend, B, [0, 1])
+            new_launches[backend] += row["launches"]
+            zoo_out[name][backend] = public_row(row)
+        if name == "zoo_msr80":
+            zoo_out[name]["turns"] = serve_turns(name)
+        zoo_out[name]["vs_jax"] = vs_jax(name, "fused")
+        torch.cuda.empty_cache()
+    zoo_out["forward"] = {"rows": ROWS, **forward_turns(spec_solver("zoo_msr80", "plain").model,
+                                                        ROWS, turns)}
+    emit("serve_multi_zoo", **zoo_out)
+
+    # -- eval_zoo: the zoo's headline rows --------------------------------------------
+    emit("eval_zoo", **eval_rows(EVAL_ZOO_SPECS, EVAL_ZOO_JAX))
 
     # -- kernels: one line per kernel ---------------------------------------------
     main_shapes = [r for r in per_shape if r["per_forward"] and r["net"] == "msr"]
@@ -1766,7 +2160,8 @@ def main() -> int:
          "library_ms": None,
          "per": f"one MSR-3c forward: the 27 launches at {ROWS} rows; launches over the "
                 f"2 fused serving requests, serve_graph's 8 fused requests (4 replayed), and "
-                f"serve_co, the multi-task phases, eval and train ({new_launches['fused']})",
+                f"serve_co, the multi-task phases, eval, train, train_clis, serve_multi_zoo and "
+                f"eval_zoo ({new_launches['fused']})",
          "co_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
                               if r["net"] == "co"),
          "multi80_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
@@ -1789,7 +2184,8 @@ def main() -> int:
                 f"serve_nu ({serve_nu_launches}), serve_nu_bf16 ({serve_nu_bf16_launches}), "
                 f"serve_graph ({serve_graph_launches['mega']}), serve_best_of "
                 f"({serve_best_of_launches}) and the CO, MSR-variant, conditioned-NU, "
-                f"refinement, multi-task and train phases ({new_launches['mega']})",
+                f"refinement, multi-task, train, train_clis and serve_multi_zoo phases "
+                f"({new_launches['mega']})",
          "cases": [{k: r[k] for k in ("net", "dtype", "rows", "tile_rows", "max_abs_err",
                                       "mean_abs_err", "kernel_ms", "plain_ms", "plain_bf16_ms",
                                       "bound_ms", "bound_by")}

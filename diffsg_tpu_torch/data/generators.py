@@ -1,26 +1,19 @@
-"""The oracle generators that remake the evaluation datasets, and the MSR
-label generators.
+"""The oracle dataset generators: CO, MSR and NU, and the NU augmenter.
 
-The part of ``diffsg_tpu/data/generators.py`` that ``datasets/`` and the
-MSR training sets need:
-``datasets/`` is not committed (its ``.gitignore`` lists every file), so a
-fresh checkout remakes the CSVs it reads, and the generation is
-deterministic. The CO oracle (``co_minlp_gen``) is NumPy, a copy; the NU
-labels come from the native grid-search oracle (``native/nu_oracle.cpp``,
-bound in ``data/native.py``), the engine the JAX package's
-``tools/make_datasets.py`` uses.
-
-:func:`ensure_datasets` writes the four CSVs of ``EVAL_DATASETS`` with the
-recipes of ``tools/make_datasets.py::KNOWN_DATASETS``, byte for byte the
-files that tool writes from the same seeds. :func:`sum_rate_gen` (the
-reference's LRH labels), :func:`msr_waterfilling_labels` (exact labels) and
-:func:`write_msr_csv` make what ``tools/make_datasets.py msr`` writes.
+Counterpart of ``diffsg_tpu/data/generators.py``, copied into the port:
+the CO oracles (``co_minlp_gen``, the 7-feature ``co_minlp_gen_7feature``),
+the MSR label generators (``sum_rate_gen``, the reference's LRH labels;
+``msr_waterfilling_labels``, exact labels; ``write_msr_csv``), the NumPy NU
+grid-search oracle (``noma_uav_gen``; the native one is ``data/native.py``)
+and the rigid-motion NU augmenter (``nu_dataset_extension``). Each draws
+from ``np.random.default_rng(seed)`` in the JAX package's order, so the
+same seed gives the same rows bit for bit. The dataset recipes built on
+them are ``data/datasets.py``.
 """
 
 from __future__ import annotations
 
-import pathlib
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
@@ -131,6 +124,75 @@ def co_minlp_gen(sample_num: int, node_num: int = 3, step: float = 0.02, seed: i
     return np.concatenate(rows)
 
 
+def co_minlp_gen_7feature(sample_num: int, node_num: int = 3, step: float = 0.05,
+                          seed: int = 0, batch: int = 256) -> Tuple[np.ndarray, np.ndarray]:
+    """The older 7-feature CO oracle (``dataset_generate.py:50-145``).
+
+    Against the CONV variant: F_t = 7.5e9, a per-node download size w and
+    tolerable delay theta, down-link costs, 'part' allocations (sum <= 1) at
+    step 0.05, decision ids 0..2^N-2, and the tolerable-delay overwrite on.
+    Returns (X (n, 7N+6), Y (n, 2N+1) = [D, F, cost]), the reference's
+    layout.
+    """
+    rng = np.random.default_rng(seed)
+    F_t, B = 7.5e9, 10e5
+
+    Ds, Fs = [], []
+    for did in range(2 ** node_num - 1):
+        D = np.array([(did >> j) & 1 for j in range(node_num)], dtype=int)
+        grid = resource_allocation_grid(D, "part", step) if did else np.zeros((1, node_num))
+        F = np.where(D > 0, grid, 0.1)
+        Ds.append(np.tile(D, (grid.shape[0], 1)))
+        Fs.append(F)
+    D_all, F_all = np.concatenate(Ds), np.concatenate(Fs)
+
+    X_rows, Y_rows = [], []
+    for start in range(0, sample_num, batch):
+        Bn = min(batch, sample_num - start)
+        s = range_random(rng, 1e5, 4e4, (Bn, node_num), 1e4, 2.5e5).astype(int).astype(float)
+        c = s * 3e3
+        w = range_random(rng, 1e5, 4e4, (Bn, node_num), 1e4, 2.5e5).astype(int).astype(float)
+        theta = range_random(rng, 0.8, 0.15, (Bn, node_num), 0.01, 1.0)
+        f_local = range_random(rng, 8e8, 4e8, (Bn, node_num), 0, 1.5e9).astype(int).astype(float)
+        alpha = rng.random((Bn, node_num))
+        beta = 1 - alpha
+        h = rng.random((Bn, node_num))
+
+        sinr = CO_P_T * h**2 / (CO_N0 + np.sum(CO_P_T * h**2, axis=1, keepdims=True))
+        r_u = B * np.log2(1 + sinr)
+        cost_local = alpha * (c / f_local) + beta * (CO_KAPPA * f_local**2 * c)
+
+        exec_term = c[:, None, :] / (F_t * F_all[None])
+        updown = (s + w)[:, None, :] / r_u[:, None, :]
+        cost_off = (alpha[:, None, :] * (updown + exec_term)
+                    + beta[:, None, :] * (CO_P_T * updown + CO_P_I * exec_term))
+        total = np.sum((1 - D_all)[None] * cost_local[:, None, :]
+                       + D_all[None] * cost_off, axis=2)
+        # The offload delay includes the downlink w / r_d (r_d == r_u),
+        # as dataset_generate.py:113,117.
+        delays = np.where(D_all[None] > 0, updown + exec_term, (c / f_local)[:, None, :])
+        sat = np.all(delays < theta[:, None, :], axis=2)
+
+        best = np.argmin(total, axis=1)
+        has_tol = sat.any(axis=1)
+        last_tol = sat.shape[1] - 1 - np.argmax(sat[:, ::-1], axis=1)
+        pick = np.where(has_tol, last_tol, best)
+
+        F_pick = np.where(D_all[pick] > 0, F_all[pick], 0.0)
+        cost_pick = total[np.arange(Bn), pick]
+
+        X = np.zeros((Bn, 7 * node_num + 6))
+        for n in range(node_num):
+            X[:, 7 * n: 7 * n + 7] = np.stack(
+                [s[:, n], c[:, n], w[:, n], theta[:, n], f_local[:, n], h[:, n], alpha[:, n]],
+                axis=1)
+        X[:, -6:] = [F_t, CO_KAPPA, CO_P_T, CO_P_I, B, CO_N0]
+        X_rows.append(X)
+        Y_rows.append(np.concatenate([D_all[pick].astype(float), F_pick, cost_pick[:, None]],
+                                     axis=1))
+    return np.concatenate(X_rows), np.concatenate(Y_rows)
+
+
 def nu_coordinates_gen(rng: np.random.Generator, sample_num: int, K: int = 3,
                        width: int = 400, height: int = 400) -> np.ndarray:
     """One user per random distinct quadrant (``noma_uav_gen.py:10-23``)."""
@@ -143,6 +205,142 @@ def nu_coordinates_gen(rng: np.random.Generator, sample_num: int, K: int = 3,
             qs[i, 2 * j + 1] = rng.integers(height // 2 * (b // 2) + 1,
                                             height // 2 * (1 + b // 2) + 1)
     return qs
+
+
+# --- NU: the NumPy grid-search oracle and the rigid-motion augmenter ---------------
+
+NU_SIGMA_SQ = 110.0
+NU_RHO_0 = 60.0
+NU_UAV_H = 150.0
+
+
+def nu_feasible_powers(P_sum: float, step: float = 0.1) -> np.ndarray:
+    """Power triples (ascending) in the SIC order (``noma_uav_gen.py:26-44``):
+    columns [smallest, middle, largest]."""
+    sols = []
+    for i in np.arange(P_sum / 3 + step, P_sum - 2 * step, step):
+        for j in np.arange((P_sum - i) / 2 + step, P_sum - i - step, step):
+            sols.append([P_sum - i - j, j, i])
+    return np.array(sols)
+
+
+def _points_in_triangle(px, py, tri):
+    """Point-in-triangle over arrays of points (``noma_uav_gen.py:47-61``)."""
+    ax, ay, bx, by, cx, cy = tri
+    d1 = (px - bx) * (ay - by) - (ax - bx) * (py - by)
+    d2 = (px - cx) * (by - cy) - (bx - cx) * (py - cy)
+    d3 = (px - ax) * (cy - ay) - (cx - ax) * (py - ay)
+    has_neg = (d1 < 0) | (d2 < 0) | (d3 < 0)
+    has_pos = (d1 > 0) | (d2 > 0) | (d3 > 0)
+    return ~(has_neg & has_pos)
+
+
+def noma_uav_gen(sample_num: int, P_sum: float = 18.0, seed: int = 0, K: int = 3,
+                 width: int = 400, height: int = 400, grid_step: float = 1,
+                 point_chunk: int = 2048, legacy_sinr: bool = False) -> np.ndarray:
+    """The NU oracle (``noma_uav_gen.py:64-116``) in NumPy: per sample, every
+    grid point inside the users' triangle against every SIC-feasible power
+    triple (the strongest channel takes the smallest power), the best kept.
+    Rows are ``[q (2K), L (2), P (K), rate]``, the rate in bits.
+
+    ``legacy_sinr=True`` keeps the reference generator's interference term,
+    ``position * P_sum`` (``noma_uav_gen.py:102`` indexes solution rows with
+    user indices); the default sums the stronger users' powers. The points
+    go through the (points x solutions) product ``point_chunk`` at a time.
+    """
+    rng = np.random.default_rng(seed)
+    fs = nu_feasible_powers(P_sum)  # (S, K) ascending: column 0 the smallest
+    qs = nu_coordinates_gen(rng, sample_num, K, width, height)
+
+    xs = np.arange(0, width + grid_step, grid_step, dtype=float)
+    ys = np.arange(0, height + grid_step, grid_step, dtype=float)
+    PX, PY = np.meshgrid(xs, ys)
+    PX, PY = PX.ravel(), PY.ravel()
+
+    data = np.zeros((sample_num, 2 * K + 2 + K + 1))
+    for i in range(sample_num):
+        tri = qs[i]
+        inside = _points_in_triangle(PX, PY, tri)
+        px, py = PX[inside], PY[inside]
+        if px.size == 0:
+            # A triangle thinner than the grid step holds no grid point: its
+            # centroid, as native/nu_oracle.cpp takes.
+            px = np.array([tri[0::2].mean()])
+            py = np.array([tri[1::2].mean()])
+        best_rate, best = -np.inf, None
+        P_pos = fs  # SIC position j takes column j
+        if legacy_sinr:
+            interference = (np.arange(K)[None, :] * P_sum) * np.ones((fs.shape[0], 1))
+        else:
+            interference = np.cumsum(P_pos, axis=1) - P_pos  # exclusive prefix
+        for s0 in range(0, px.size, point_chunk):
+            cx, cy = px[s0: s0 + point_chunk], py[s0: s0 + point_chunk]
+            d2 = (cx[:, None] - tri[0::2][None]) ** 2 + (cy[:, None] - tri[1::2][None]) ** 2
+            h = np.sqrt(NU_RHO_0 / (NU_UAV_H**2 + d2))  # (P, K)
+            order = np.argsort(-h, axis=1)  # SIC order, strongest first
+            h_sorted = np.take_along_axis(h, order, axis=1)
+            sinr0 = P_pos[None, :, 0] * h_sorted[:, None, 0] ** 2 / NU_SIGMA_SQ
+            sinr_rest = P_pos[None, :, 1:] / (
+                interference[None, :, 1:] + NU_SIGMA_SQ / h_sorted[:, None, 1:] ** 2)
+            rates = np.log2(1 + sinr0) + np.log2(1 + sinr_rest).sum(axis=2)  # (P, S)
+            flat = np.argmax(rates)
+            p_i, s_i = np.unravel_index(flat, rates.shape)
+            if rates[p_i, s_i] > best_rate:
+                P_users = np.empty(K)
+                P_users[order[p_i]] = P_pos[s_i]     # back to the users' order
+                best_rate = rates[p_i, s_i]
+                best = np.concatenate([[cx[p_i], cy[p_i]], P_users, [best_rate]])
+        data[i, : 2 * K] = tri
+        data[i, 2 * K:] = best
+    return data
+
+
+def rotate_point(point, center, angle_degrees):
+    a = np.radians(angle_degrees)
+    x, y = point
+    cx, cy = center
+    return (np.cos(a) * (x - cx) - np.sin(a) * (y - cy) + cx,
+            np.sin(a) * (x - cx) + np.cos(a) * (y - cy) + cy)
+
+
+def nu_dataset_extension(src_data: np.ndarray, times: int = 3, seed: int = 0,
+                         width: int = 400, height: int = 400,
+                         rotation_upper: int = 10) -> np.ndarray:
+    """``times`` augmented copies of NU rows, each row translated or flipped
+    and rotated about its centroid (``noma_uav_gen.py:131-170``). The rate
+    is invariant under these rigid motions, so the label columns ride
+    along. One generator draws row by row, copy by copy, as the JAX
+    package's draws."""
+    rng = np.random.default_rng(seed)
+    n, cols = src_data.shape
+    out = np.zeros((n * times, cols))
+    xi, yi = [0, 2, 4, 6], [1, 3, 5, 7]
+    for t in range(times):
+        for j in range(n):
+            row = src_data[j].copy()
+            k = t * n + j
+            if rng.integers(2) == 0:  # translate
+                x_min, x_max = row[xi[:3]].min(), row[xi[:3]].max()
+                y_min, y_max = row[yi[:3]].min(), row[yi[:3]].max()
+                # Rotated rows have fractional coordinates: the range is
+                # floored as the reference's np.random.randint floors it,
+                # and a range below 1 (where the reference raises) moves 0.
+                hi_x, hi_y = int(width - x_max), int(height - y_max)
+                dx = (rng.integers(hi_x) if hi_x >= 1 else 0) - x_min
+                dy = (rng.integers(hi_y) if hi_y >= 1 else 0) - y_min
+                row[xi] += dx
+                row[yi] += dy
+            else:  # flip, then a small rotation about the centroid
+                row[xi] = width - row[xi]
+                row[yi] = height - row[yi]
+                tri = row[[0, 1, 2, 3, 4, 5]].reshape(3, 2)
+                centroid = tri.mean(axis=0)
+                ang = rng.integers(-rotation_upper, rotation_upper)
+                for p in range(3):
+                    row[2 * p], row[2 * p + 1] = rotate_point(tri[p], centroid, ang)
+                row[6], row[7] = rotate_point((row[6], row[7]), centroid, ang)
+            out[k] = row
+    return out
 
 
 # --- MSR: LRH gradient-descent label generator ----------------------------------
@@ -226,45 +424,3 @@ def write_msr_csv(path: str, gs, rates, schemes) -> None:
     np.savetxt(path, np.concatenate([gs, rates[:, None], schemes], axis=1),
                delimiter=",")
 
-
-#: The evaluation CSVs and their recipes (``tools/make_datasets.py``):
-#: ("co", samples, seed) or ("nu", samples, P_sum mW, width, height, seed,
-#: grid step).
-EVAL_DATASETS: Dict[str, tuple] = {
-    "3nodes_50000samples_new.csv": ("co", 50000, 0),
-    "3u_geo600x600_33mW_500samples.csv": ("nu", 500, 33.0, 600.0, 600.0, 11, 3.0),
-    "3u_geo200x200_12mW_500samples.csv": ("nu", 500, 12.0, 200.0, 200.0, 12, 1.0),
-    "3u_geo480x360_21mW_1000samples.csv": ("nu", 1000, 21.0, 480.0, 360.0, 7, 2.0),
-}
-
-
-def make_dataset(name: str) -> np.ndarray:
-    """The rows of ``EVAL_DATASETS[name]``."""
-    recipe = EVAL_DATASETS[name]
-    if recipe[0] == "co":
-        return co_minlp_gen(recipe[1], seed=recipe[2])
-    from .native import nu_oracle_native
-
-    _, n, P_sum, width, height, seed, grid_step = recipe
-    qs = nu_coordinates_gen(np.random.default_rng(seed), n, width=int(width),
-                            height=int(height))
-    sol = nu_oracle_native(qs, P_sum=P_sum, grid_step=grid_step, width=width, height=height)
-    return np.concatenate([qs, sol], axis=1)
-
-
-def ensure_datasets(names: Optional[Iterable[str]] = None,
-                    root: Optional[str] = None) -> Dict[str, pathlib.Path]:
-    """Write each missing CSV of ``names`` (default: all of
-    ``EVAL_DATASETS``) under ``root`` (default: the repository's
-    ``datasets/``); return every path."""
-    root_dir = pathlib.Path(root) if root else (
-        pathlib.Path(__file__).resolve().parent.parent.parent / "datasets")
-    paths = {}
-    for name in (names or EVAL_DATASETS):
-        out = paths[name] = root_dir / name
-        if not out.exists():
-            root_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(out.name + ".tmp")
-            np.savetxt(tmp, make_dataset(name), delimiter=",")
-            tmp.replace(out)
-    return paths

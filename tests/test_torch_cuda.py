@@ -8,6 +8,8 @@ no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
 (``--noconftest`` because ``tests/conftest.py`` configures JAX.)
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -563,3 +565,130 @@ def test_cuda_wrappers_raise_under_grad():
         assert torch.isfinite(unet_forward_mega(model, y, t, c, m)).all()
         assert torch.isfinite(fused_residual_block(*[a.detach() if a is not None else None
                                                      for a in args])).all()
+
+
+def _make_cli_inputs(root):
+    """Small CSVs for the training CLIs, from the port's make_datasets."""
+    from diffsg_tpu_torch.tools import make_datasets
+
+    recipes = {
+        "3c_10w_400samples.csv": ["msr", "--samples", "400"],
+        "3c_20w_200samples_ood.csv": ["msr", "--samples", "200", "--power", "20", "--seed", "1"],
+        "3nodes_400samples.csv": ["co", "--samples", "400"],
+        "3u_18mW_200samples.csv": ["nu", "--samples", "200", "--grid-step", "8"],
+        "3u_budget_200samples.csv": ["nu-budget", "--samples", "200", "--budget-step", "3",
+                                     "--grid-step", "8"],
+        "3u_geo_200samples.csv": ["nu-geo", "--samples", "200", "--geom-step", "200",
+                                  "--grid-step", "8"],
+    }
+    for name, argv in recipes.items():
+        make_datasets.main(argv + ["--out", str(root / name)])
+    return lambda name: str(root / name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cli", ["train_msr_budget", "train_multi"])
+def test_cuda_cli_epoch_matches_cpu(cli, tmp_path, monkeypatch):
+    """One epoch of a training CLI on the card against the same epoch with
+    ``--cpu``: one init, the same injected draws, TF32 off. Held as
+    ``chip_smoke.py``'s train phase holds card steps (loss within 1e-5
+    relative; at most 1e-4 of the parameters off by more than 1e-4, none by
+    more than 2 lr)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+
+    import diffsg_tpu_torch.train as port_train
+    from diffsg_tpu_torch.train import EpochDraws
+    from diffsg_tpu_torch.utils import load_checkpoint
+
+    d = _make_cli_inputs(tmp_path)
+    if cli == "train_msr_budget":
+        argv = ["--samples", "1536", "--proj-dim", "32", "--dims", "16", "8", "--epochs", "1",
+                "--omegas", "1.0", "--indist", d("3c_10w_400samples.csv"),
+                "--ood", d("3c_20w_200samples_ood.csv")]
+    else:
+        argv = ["--nu-mode", "geo", "--with-msr80", "--with-msr8", "--proj-dim", "32",
+                "--dims", "16", "8", "--lr", "5e-4", "--grad-clip", "0.25",
+                "--parameterization", "x0", "--epochs", "1", "--skip-eval",
+                "--msr-dataset", d("3c_10w_400samples.csv"),
+                "--co-dataset", d("3nodes_400samples.csv"),
+                "--nu-dataset", d("3u_18mW_200samples.csv"),
+                "--nu-budget-dataset", d("3u_budget_200samples.csv"),
+                "--nu-geo-datasets", d("3u_geo_200samples.csv"), "--msr-repeat", "1",
+                "--co-repeat", "1", "--nu-times", "1", "--msr80-samples", "300",
+                "--msr8-samples", "200"]
+    real = port_train.train_ddpm
+
+    def with_fixed_draws(model, X, Y, cfg, **kw):
+        n = X.shape[0]
+        B = min(cfg.batch_size, n)
+        steps = max(n // B, 1)
+        rng = np.random.default_rng(0)
+        draws = EpochDraws(torch.as_tensor(rng.permutation(n)[:steps * B]),
+                           torch.as_tensor(rng.integers(0, cfg.T, (steps, B))),
+                           torch.as_tensor(rng.normal(size=(steps, B, Y.shape[1]))
+                                           .astype(np.float32)),
+                           torch.as_tensor((rng.uniform(size=(steps, B, 1)) >= cfg.uncond_prob)
+                                           .astype(np.float32)))
+        return real(model, X, Y, cfg, draws=lambda epoch: draws, **kw)
+
+    monkeypatch.setattr(port_train, "train_ddpm", with_fixed_draws)
+    module = importlib.import_module(f"diffsg_tpu_torch.tools.{cli}")
+    out = {}
+    for device, flags in (("cpu", ["--cpu"]), ("cuda", [])):
+        run = tmp_path / device
+        module.main(argv + flags + ["--out", str(run)])
+        log = [json.loads(line) for line in (run / "train_log.jsonl").open()]
+        assert log[0]["device"] == ("cpu" if device == "cpu" else torch.cuda.get_device_name(0))
+        loss = float(next(r for r in log if r["event"] == "train")["msg"].rsplit(" ", 1)[1])
+        ck = load_checkpoint(str(run), device="cpu")
+        out[device] = (loss, np.concatenate([np.asarray(v, np.float64).ravel()
+                                             for _, v in _flat(ck["params"])]))
+        lr = ck["metadata"]["config"]["lr"]
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    diff = np.abs(out["cuda"][1] - out["cpu"][1])
+    assert (diff > 1e-4).mean() <= 1e-4 and diff.max() <= 2 * lr, (diff.max(), lr)
+
+
+def _flat(tree, prefix=""):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("face", ["multi_msr", "multi_co", "multi_nu_geo", "multi_msr80",
+                                  "multi_msr8"])
+def test_cuda_zoo_faces_kernels_match_plain(face):
+    """``ckpts/ddpm_multi_zoo``'s faces (proj 256, canvas 80, condition 5 +
+    81) through ``fused`` (27 launches a forward) and ``mega`` (1) against
+    ``plain`` on the card at 4,096 rows, half masked: within 1e-4 of the
+    output's magnitude, as ``chip_smoke.py``'s FORWARD_RTOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import pathlib
+
+    from diffsg_tpu_torch.models import unet_apply_fn
+    from diffsg_tpu_torch.serve import Solver
+
+    zoo = pathlib.Path(__file__).resolve().parent.parent / "ckpts" / "ddpm_multi_zoo"
+    model = Solver.from_checkpoint(str(zoo), task=face, device="cuda").model
+    rng = np.random.default_rng(len(face))
+    rows = 4096
+    y = torch.tensor(rng.normal(size=(rows, model.inner.input_dim)), dtype=torch.float32,
+                     device="cuda")
+    c = torch.tensor(rng.uniform(0, 1, (rows, model.payload_dim)), dtype=torch.float32,
+                     device="cuda")
+    m = (torch.arange(rows, device="cuda") >= rows // 2).float()[:, None]
+    t = torch.tensor([0.37], device="cuda")
+    with torch.no_grad():
+        ref = unet_apply_fn(model, "plain")(y, t, c, m)
+        for backend, counter, per_forward in (("fused", resblock, 27), ("mega", mega, 1)):
+            before = counter.LAUNCHES
+            out = unet_apply_fn(model, backend)(y, t, c, m)
+            torch.cuda.synchronize()
+            assert counter.LAUNCHES == before + per_forward, backend
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))

@@ -41,10 +41,15 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 CKPTS = REPO / "ckpts"
 
 
+def eval_spec(name):
+    """``chip_smoke.EVAL_SPECS[name]``, or the zoo's ``EVAL_ZOO_SPECS[name]``."""
+    return {**chip_smoke.EVAL_SPECS, **chip_smoke.EVAL_ZOO_SPECS}[name]
+
+
 @functools.lru_cache(maxsize=None)
 def _port_data(name):
-    """The port's loader and the port's checkpoint for EVAL_SPECS[name]."""
-    spec = chip_smoke.EVAL_SPECS[name]
+    """The port's loader and the port's checkpoint for eval spec ``name``."""
+    spec = eval_spec(name)
     ck = load_checkpoint(str(CKPTS / spec["ckpt"]), device="cpu")
     task = TASKS[spec["task"]]
     data = task.load(str(ensure_datasets([spec["csv"]])[spec["csv"]]), **spec.get("load_kw", {}))
@@ -214,7 +219,7 @@ def _jax_eval_program(name):
     ``sample_solutions`` (or ``sample_best_of_n``) for one batch, compiled
     once so that many seeds cost no recompile. ``jax_eval_draws`` feeds it
     the keys those functions derive from a seed."""
-    spec = chip_smoke.EVAL_SPECS[name]
+    spec = eval_spec(name)
     jck = jax_load_checkpoint(str(CKPTS / spec["ckpt"]))
     jt = JAX_TASKS[spec["task"]]
     data = jt.load(str(ensure_datasets([spec["csv"]])[spec["csv"]]), **spec.get("load_kw", {}))
@@ -286,7 +291,7 @@ def jax_eval_constants(name):
     mean, sqrt(1 + 1/K) times the square root of the rows' summed
     seed-to-seed variances (at least 1e-6 of the mean; one row for a
     count)."""
-    K = chip_smoke.EVAL_SPECS[name]["seeds"]
+    K = eval_spec(name)["seeds"]
     out = {}
     for k, r in jax_eval_rows(name, range(K)).items():
         mean = float(r.sum(axis=1).mean())
