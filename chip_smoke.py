@@ -70,7 +70,16 @@ their answers:
   ``fused`` and ``mega`` in turns from the graphs, held to the JAX
   package's mean quality, the forward on the three in turns; and
   ``evaluate`` on its MSR-80c, MSR-8c and CO rows of ``tools/headline.py``
-  (``eval_zoo``), held to ``EVAL_ZOO_JAX``.
+  (``eval_zoo``), held to ``EVAL_ZOO_JAX``;
+* the baselines (``baselines``): GD on each task at 65,536 rows on the card,
+  equal to the CPU's on the same rows and feasible row by row; the five
+  shipped ``ckpts/retrain_*`` checkpoints' metrics on the test splits held
+  to the JAX package's (``BASELINE_JAX``); one MTFNN and one PPO epoch on
+  the card held to the same epoch on the CPU. Their training CLI
+  (``train_baselines``: 2 epochs for each shipped checkpoint's pair) and the
+  comparison (``report``): ``tools/report.py`` on CO, MSR-3c and NU, a DDPM
+  row through ``fused`` held to ``REPORT_JAX`` beside the GD, MTFNN and PPO
+  rows, and ``tools/fewstep.py`` on NU (``mega``) and CO (``fused``).
 
 The residual-block kernel is held to its plain version at every block
 shape of the MSR-3c forward (16,384 rows) and of the CO forward (65,536
@@ -1002,6 +1011,401 @@ def train_clis_phase(dev):
                    seconds=time.perf_counter() - t_cli)
         fields[name] = row
         torch.cuda.empty_cache()
+    return fields, launches
+
+
+# -- baselines, train_baselines, report: GD, MTFNN, PPO and the comparison CLIs -----
+# The test splits: the CO set of datasets/, and two sets made in build/datasets
+# (the reference's 3-channel 10 W MSR set and its 18 mW NU set are not in the
+# repository): the reference's LRH labels on 10,000 MSR rows, and 1,000 NU
+# rows on the 400 x 400 field at grid step 2. Each made file's SHA-256 is the
+# JAX package's tools/make_datasets.py output for its recipe.
+BASELINE_DATA = {
+    "co": (("datasets", "3nodes_50000samples_new.csv"), None, None),
+    "msr": (("build", "datasets", "3c_10w_10000samples.csv"),
+            ("msr", {"samples": 10000, "channels": 3, "power": 10.0}),
+            "25feebddf6eb9c319356e1d46b7003e9d8cc705a7fc9388578c7a52bb8b80980"),
+    "nu": (("build", "datasets", "3u_18mW_1000samples.csv"),
+           ("nu", {"samples": 1000, "power": 18.0, "grid_step": 2.0, "seed": 0}),
+           "6ab5f628e22425bb7d4b6cd82b8b3502980cbaafb944c5279b36de8f8985f70a"),
+}
+# The shipped baseline checkpoints (tools/train_baselines.py's output) by
+# (algo, family).
+BASELINE_CKPTS = {("mtfnn", "co"): "retrain_mtfnn_co", ("mtfnn", "nu"): "retrain_mtfnn_nu",
+                  ("ppo", "co"): "retrain_ppo_co", ("ppo", "msr"): "retrain_ppo_msr_3c",
+                  ("ppo", "nu"): "retrain_ppo_nu"}
+# tests/test_baselines.py:362,365's pins of the two CO checkpoints, within 2e-3.
+CO_RETRAIN_PINS = {"retrain_mtfnn_co": 1.06299, "retrain_ppo_co": 1.59212}
+GD_B = 65_536
+# The JAX package's metrics on BASELINE_DATA's test splits (its loaders, the
+# flax forward, float32 objectives on the CPU): each shipped checkpoint
+# through tools/report.py's run_mtfnn / run_ppo, and GD (run_gd) run op by op
+# (jax.disable_jit), which rounds after every op as the port does: XLA's
+# compiled CO loop contracts multiply-adds and parts from it on ~30% of rows.
+# Deterministic, so held to BASELINE_RTOL. Computed by
+# tests/test_torch_report_clis.py::test_chip_smoke_baseline_constants (slow):
+#     python -m pytest -m slow tests/test_torch_report_clis.py -k baseline_constants
+BASELINE_RTOL = 1e-5
+BASELINE_JAX = {
+    "retrain_mtfnn_co": {"exceeded_ratio": 1.0630491971969604, "avg_diff": 0.11989863961935043},
+    "retrain_mtfnn_nu": {"less_ratio": 0.8854092359542847, "avg_diff": -4.406654625199735e-05},
+    "retrain_ppo_co": {"exceeded_ratio": 1.5921201705932617, "avg_diff": 1.126015543937683},
+    "retrain_ppo_msr_3c": {"less_ratio": 0.9989832639694214,
+                           "avg_diff": -0.0076301321387290955},
+    "retrain_ppo_nu": {"less_ratio": 0.4645560681819916, "avg_diff": -0.0002059081889456138},
+    "gd_co": {"exceeded_ratio": 1.3196297883987427, "avg_diff": 0.6078296899795532},
+    "gd_msr": {"less_ratio": 0.9984303116798401, "avg_diff": -0.011779670603573322},
+    "gd_nu": {"less_ratio": 0.8483281135559082, "avg_diff": -5.8326324506197125e-05},
+}
+# The report phase's DDPM rows (tools/report.py's protocol: evaluate, 512 rows
+# a batch): CO through co_ranked on ckpts/ddpm_co_x0 at omega 1, MSR-3c on
+# ckpts/ddpm_msr_3c_T100 (DDPM T=100) at omega 500, NU through nu_direct on
+# ckpts/ddpm_nu_3u_aug32_s8c with DDIM-3 at omega 0.125; each with the baseline
+# rows that have a checkpoint. ``seeds``: the JAX draws behind the constants.
+REPORT_SPECS = {
+    "co": dict(task="co_ranked", ckpt="ddpm_co_x0", argv=["--omegas", "1"], seeds=2),
+    "msr": dict(task="msr", ckpt="ddpm_msr_3c_T100", argv=["--omegas", "500"], seeds=8),
+    "nu": dict(task="nu_direct", ckpt="ddpm_nu_3u_aug32_s8c",
+               argv=["--omegas", "0.125", "--sampler", "ddim", "--n-steps", "3"], seeds=64),
+}
+# The JAX package's evaluate on each spec: per metric the mean over JAX seeds
+# 0 to K-1 (K the spec's ``seeds``: 2 on CO's 30 batches, 8 on MSR-3c's 6, 64
+# on NU's one) and 4 standard errors of one draw (at least 1e-6 of the mean;
+# one row for a count), from the seed-to-seed variance of each 512-row
+# batch's contribution: the MSR decoder's batch-global min-max ties a batch's
+# rows together, and per-row variances (EVAL_JAX's way) understate MSR-3c's
+# spread 3x: they put a card draw 1.9 tolerances off (PERF.md section 6).
+# Computed by
+# tests/test_torch_report_clis.py::test_chip_smoke_report_constants (slow):
+#     python -m pytest -m slow tests/test_torch_report_clis.py -k report_constants
+REPORT_JAX = {
+    "co": {"exceeded_ratio": (1.0018973350524902, 0.0004272470895293353),
+           "avg_diff": (0.003608160885050893, 0.0008124930945224258),
+           "decision_accuracy": (0.9443000000000003, 0.007364781055808767),
+           "terrible_count": (0.0, 1.0)},
+    "msr": {"less_ratio": (0.9958694577217102, 0.0011169118181003758),
+            "avg_diff": (-0.030997756868600845, 0.008381994668819037)},
+    "nu": {"less_ratio": (0.9993964433670044, 0.00026241813434792633),
+           "avg_diff": (-2.320828684787557e-07, 1.0091819369068218e-07)},
+}
+# The fewstep runs: nu_direct through mega (the production NU row's backend),
+# co_ranked through fused; steps 3, 5, 10 and 20 and the DDPM row.
+FEWSTEP_SPECS = {
+    "nu": dict(backend="mega", argv=["--omega", "0.125", "--steps", "3", "5", "10", "20"]),
+    "co": dict(backend="fused", argv=["--omega", "1", "--steps", "3", "5", "10", "20"]),
+}
+
+
+def baseline_splits():
+    """{family: the CSV's path}: BASELINE_DATA's files, made where missing,
+    each made file's SHA-256 held to the JAX package's."""
+    from diffsg_tpu_torch.data import ensure_datasets
+    from diffsg_tpu_torch.data.datasets import make_rows, write_csv
+
+    ensure_datasets(["3nodes_50000samples_new.csv"])
+    paths = {}
+    for fam, (parts, recipe, sha) in BASELINE_DATA.items():
+        path = paths[fam] = os.path.join(REPO, *parts)
+        if recipe is None:
+            continue
+        if not os.path.exists(path):
+            write_csv(path, make_rows(recipe[0], **recipe[1]))
+        with open(path, "rb") as f:
+            check(hashlib.sha256(f.read()).hexdigest() == sha,
+                  f"baselines: {parts[-1]} remade as the JAX package makes it")
+    return paths
+
+
+def _metrics_within(what, got, want, rtol):
+    for k, v in want.items():
+        check(np.isfinite(got[k]) and abs(got[k] - v) <= rtol * abs(v),
+              f"{what}: {k} {got[k]} vs the JAX package's {v} (rtol {rtol})")
+
+
+def baselines_phase(dev):
+    """The ``baselines`` phase: GD on each family at GD_B rows on the card,
+    held to the CPU on the same rows and feasible row by row (solutions/s);
+    the five shipped checkpoints' predictions on the test splits, each
+    metric held to BASELINE_JAX and the CO pair to its pins; one train_mtfnn
+    and one train_ppo epoch over CO's training split on the card and on the
+    CPU from one init on the same injected draws, the parameters held to
+    the train phase's bounds."""
+    import dataclasses
+
+    import torch
+
+    from diffsg_tpu_torch.baselines import (MTFNNConfig, PPOConfig, PPODraws, mtfnn_co_model,
+                                            orthogonal_ppo_init, train_mtfnn, train_ppo)
+    from diffsg_tpu_torch.tasks import TASKS, objective_metrics
+    from diffsg_tpu_torch.tools import report, train_baselines
+    from diffsg_tpu_torch.train import torch_style_init
+    from diffsg_tpu_torch.utils import params_from_jax, params_to_jax
+
+    paths = baseline_splits()
+    data = {fam: TASKS[fam].load(p) for fam, p in paths.items()}
+    out = {"splits": {fam: {"csv": os.path.relpath(p, REPO), "test_rows": len(data[fam].X_test)}
+                      for fam, p in paths.items()}}
+
+    # GD at GD_B rows (the test split repeated), through the report's runner.
+    gd = {}
+    for fam, d in data.items():
+        big = dataclasses.replace(d, X_test=np.resize(d.X_test, (GD_B, d.X_test.shape[1])))
+        secs = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            S = report.run_gd(fam, big, TASKS[fam], dev)      # ends with a copy to the host
+            secs.append(time.perf_counter() - t0)
+        S_cpu = report.run_gd(fam, big, TASKS[fam], torch.device("cpu"))
+        err = float(np.abs(S - S_cpu).max() / np.abs(S_cpu).max())
+        check(bool(np.isfinite(S).all()) and err <= BASELINE_RTOL,
+              f"baselines gd {fam}: card vs CPU {err} of the magnitude")
+        if fam == "msr":
+            gap = float(np.abs(S.sum(1) - d.config["W"]).max() / d.config["W"])
+        elif fam == "nu":
+            gap = float(np.abs(S[:, 2:].sum(1) - d.config["P_sum"]).max() / d.config["P_sum"])
+        else:                       # min-max per row: each row spans [0, 1]
+            gap = float(np.abs(S.min(1)).max() + np.abs(S.max(1) - 1).max())
+        check(gap <= 1e-5, f"baselines gd {fam}: feasibility off by {gap}")
+        gd[fam] = {"B": GD_B, "card_vs_cpu": err, "bitwise": bool(np.array_equal(S, S_cpu)),
+                   "feasibility_gap": gap, "s": secs[1:],
+                   "solutions_per_s": GD_B / float(np.median(secs[1:]))}
+    out["gd"] = gd
+
+    # The shipped checkpoints on the test splits.
+    retrain = {}
+    for (algo, fam), name in BASELINE_CKPTS.items():
+        run = report.run_mtfnn if algo == "mtfnn" else report.run_ppo
+        Y = run(fam, data[fam], os.path.join(REPO, "ckpts", name), dev)
+        m = objective_metrics(TASKS[fam], data[fam], Y, device=dev)
+        _metrics_within(f"baselines {name}", m, BASELINE_JAX[name], BASELINE_RTOL)
+        if name in CO_RETRAIN_PINS:
+            check(abs(m["exceeded_ratio"] - CO_RETRAIN_PINS[name]) <= 2e-3,
+                  f"baselines {name}: exceeded ratio {m['exceeded_ratio']} vs its pin "
+                  f"{CO_RETRAIN_PINS[name]}")
+        retrain[name] = {"rows": len(Y), **m}
+    out["checkpoints"] = retrain
+
+    # One epoch of each trainer, card and CPU, one init and the same draws.
+    co = data["co"]
+    n = co.X_train.shape[0]
+    B = 512
+    steps = n // B
+    rng = np.random.default_rng(3)
+    perm = torch.from_numpy(rng.permutation(n))
+    agent, labels = train_baselines.ppo_recipe("co", co.config)[:2]
+    A = agent.action_dim
+    z0 = rng.normal(size=(steps * B, A)).astype(np.float32)
+    draws = PPODraws(torch.from_numpy(rng.permutation(steps * B)),
+                     torch.from_numpy(rng.normal(size=(steps, B, A)).astype(np.float32)))
+    inits = {"mtfnn": params_to_jax(torch_style_init(mtfnn_co_model(),
+                                                     torch.Generator().manual_seed(3))),
+             "ppo": params_to_jax(orthogonal_ppo_init(agent, torch.Generator().manual_seed(3)))}
+    epochs = {}
+    for algo in ("mtfnn", "ppo"):
+        ran = {}
+        for d in ("cpu", dev):
+            log = []
+            t0 = time.perf_counter()
+            if algo == "mtfnn":
+                p = train_mtfnn(mtfnn_co_model(), co.X_train, co.Y_train, MTFNNConfig(epochs=1),
+                                log_fn=log.append, log_every=1, init_params=inits[algo],
+                                device=d, draws=lambda e: perm)
+            else:
+                a, _, env_fn, transform, _, _ = train_baselines.ppo_recipe("co", co.config)
+                p, _ = train_ppo(a, co.X_train, labels(co.Y_train), env_fn, transform,
+                                 PPOConfig(epochs=1), log_fn=log.append, log_every=1,
+                                 init_params=inits[algo], device=d, a0=z0,
+                                 draws=lambda e: draws)
+            if str(d) != "cpu":
+                torch.cuda.synchronize()
+            ran[str(d)] = (torch.cat([v.flatten() for v in params_from_jax(p).values()]),
+                           log[0], time.perf_counter() - t0)
+        (p_cpu, log_cpu, s_cpu), (p_dev, log_dev, s_dev) = ran["cpu"], ran[str(dev)]
+        diff = (p_cpu - p_dev).abs()
+        row = {"steps": steps, "log_cpu": log_cpu, "log_card": log_dev, "card_s": s_dev,
+               "cpu_s": s_cpu, "steps_per_s": steps / s_dev, "max_abs": float(diff.max()),
+               "share_over_atol": float((diff > TRAIN_PARAM_ATOL).float().mean()),
+               "params": int(diff.numel())}
+        if algo == "mtfnn":
+            l_cpu, l_dev = (float(s.rsplit(" ", 1)[1]) for s in (log_cpu, log_dev))
+            row["loss_rel"] = abs(l_cpu - l_dev) / abs(l_cpu)
+            check(row["loss_rel"] <= TRAIN_LOSS_RTOL, f"baselines {algo} epoch: loss {row}")
+        check(row["share_over_atol"] <= TRAIN_PARAM_SHARE and row["max_abs"] <= 2 * 5e-3,
+              f"baselines {algo} epoch: card vs CPU parameters {row}")
+        epochs[algo] = row
+    out["epoch_card_vs_cpu"] = epochs
+    return out
+
+
+# train_baselines: the CLI for TRAIN_BASELINE_EPOCHS epochs in each (algo,
+# family) of the shipped checkpoints, on BASELINE_DATA's files (a cut from the
+# recipes' 50 to 200 epochs); each checkpoint then read back by report.
+TRAIN_BASELINE_EPOCHS = 2
+
+
+def train_baselines_phase(dev):
+    """The ``train_baselines`` phase: ``tools/train_baselines.py`` on the card
+    for each shipped checkpoint's (algo, family), its log and metric row
+    finite (steps/s, seconds an epoch); then ``tools/report.py`` reads each
+    family's new checkpoints, its rows finite."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from diffsg_tpu_torch.tools import train_baselines
+
+    paths = baseline_splits()
+    out_root = os.path.join(REPO, "build", "train_baselines")
+    shutil.rmtree(out_root, ignore_errors=True)
+    fields, outs = {}, {}
+    for algo, fam in BASELINE_CKPTS:
+        out = outs[algo, fam] = os.path.join(out_root, f"{algo}_{fam}")
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            train_baselines.main([algo, "--task", fam, "--dataset", paths[fam], "--out", out,
+                                  "--epochs", str(TRAIN_BASELINE_EPOCHS)])
+        cli_s = time.perf_counter() - t0
+        log = [json.loads(line) for line in open(os.path.join(out, "train_log.jsonl"))]
+        start = next(r for r in log if r["event"] == "start")
+        done = next(r for r in log if r["event"] == "trained")
+        (row,) = [json.loads(line) for line in printed.getvalue().splitlines()
+                  if line.startswith('{"algo"')]
+        check(start["device"] == torch.cuda.get_device_name(dev),
+              f"train_baselines {algo} {fam}: trained on {start['device']}")
+        check(all(np.isfinite(v) for v in row.values() if isinstance(v, float)),
+              f"train_baselines {algo} {fam}: finite metrics {row}")
+        steps = done["steps_per_epoch"] * done["epochs"]
+        fields[f"{algo}_{fam}"] = {
+            "rows": start["rows"], "epochs": done["epochs"], "steps": steps,
+            "train_seconds": done["train_seconds"],
+            "epoch_s": done["train_seconds"] / done["epochs"],
+            "steps_per_s": steps / done["train_seconds"], "cli_s": cli_s,
+            "log": [r["msg"] for r in log if r["event"] == "train"],
+            "metrics": {k: v for k, v in row.items() if k not in ("algo", "task")}}
+    for fam in ("co", "msr", "nu"):
+        argv = ["--task", fam, "--datasets", paths[fam], "--baselines"]
+        algos = [a for a, f in BASELINE_CKPTS if f == fam]
+        argv += algos + [x for a in algos for x in (f"--{a}-ckpt", outs[a, fam])]
+        rows = run_report(argv, os.path.join(out_root, f"report_{fam}.jsonl"))
+        check([r["solver"] for r in rows] == algos and all(
+            np.isfinite(v) for r in rows for v in r.values() if isinstance(v, float)),
+            f"train_baselines: report on the new {fam} checkpoints {rows}")
+        fields[f"report_{fam}"] = {r["solver"]: {k: v for k, v in r.items() if k not in (
+            "solver", "task", "dataset")} for r in rows}
+    return fields
+
+
+def run_report(argv, out):
+    """``tools/report.py`` in this process, its rows from ``out``."""
+    import contextlib
+    import io
+
+    from diffsg_tpu_torch.tools import report
+
+    if os.path.exists(out):
+        os.remove(out)
+    with contextlib.redirect_stdout(io.StringIO()):
+        report.main(argv + ["--out", out])
+    return [json.loads(line) for line in open(out)]
+
+
+def _forwards_and_blocks(task, ckpt, dev):
+    """(T, residual blocks a forward) of a checkpoint's net."""
+    from diffsg_tpu_torch.models.unet1d import ResidualBlock
+    from diffsg_tpu_torch.serve import Solver
+
+    solver = Solver.from_checkpoint(ckpt, task=task, device=dev, backend="plain")
+    return solver.sched.T, sum(isinstance(m, ResidualBlock) for m in solver.model.modules())
+
+
+def report_phase(dev):
+    """The ``report`` phase: ``tools/report.py`` on CO, MSR-3c and NU, one
+    DDPM row (fused) held to REPORT_JAX and the baseline rows with a
+    checkpoint held to BASELINE_JAX; then ``tools/fewstep.py`` on nu_direct
+    (mega) and co_ranked (fused), its rows finite and the NU DDIM-3 row held
+    to the report's DDIM-3 constant. Launches counted per run against the
+    batches, steps and blocks. Returns (fields, {"fused": n, "mega": n})."""
+    import contextlib
+    import io
+
+    from diffsg_tpu_torch.ops import mega, resblock
+    from diffsg_tpu_torch.tasks import TASKS
+    from diffsg_tpu_torch.tools import fewstep
+
+    paths = baseline_splits()
+    out_root = os.path.join(REPO, "build", "report_smoke")
+    os.makedirs(out_root, exist_ok=True)
+    fields, launches = {}, {"fused": 0, "mega": 0}
+    for fam, spec in REPORT_SPECS.items():
+        ckpt = os.path.join(REPO, "ckpts", spec["ckpt"])
+        algos = [a for a, f in BASELINE_CKPTS if f == fam]
+        argv = (["--task", spec["task"], "--datasets", paths[fam], "--ckpt", ckpt, *spec["argv"],
+                 "--baselines", "gd", *algos]
+                + [x for a in algos for x in (f"--{a}-ckpt",
+                                              os.path.join(REPO, "ckpts", BASELINE_CKPTS[a, fam]))])
+        resblock.LAUNCHES = mega.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rows = run_report(argv, os.path.join(out_root, f"report_{fam}.jsonl"))
+        seconds = time.perf_counter() - t0
+        n_test = int(rows[0]["n_samples"])
+        T, blocks = _forwards_and_blocks(spec["task"], ckpt, dev)
+        steps = 3 if "--n-steps" in spec["argv"] else T
+        want = -(-n_test // 512) * steps * blocks
+        check(resblock.LAUNCHES == want and mega.LAUNCHES == 0,
+              f"report {fam}: {want} fused launches, counted {resblock.LAUNCHES} and "
+              f"{mega.LAUNCHES} mega")
+        launches["fused"] += want
+        check([r["solver"] for r in rows] == [rows[0]["solver"], "gd", *algos],
+              f"report {fam}: rows {[r['solver'] for r in rows]}")
+        for k, (mean, tol) in REPORT_JAX[fam].items():
+            check(np.isfinite(rows[0][k]) and abs(rows[0][k] - mean) <= tol,
+                  f"report {fam}: {k} {rows[0][k]} vs the JAX package's {mean} (+-{tol})")
+        for r in rows[1:]:
+            name = f"gd_{fam}" if r["solver"] == "gd" else BASELINE_CKPTS[r["solver"], fam]
+            _metrics_within(f"report {fam} {r['solver']}", r, BASELINE_JAX[name], BASELINE_RTOL)
+        fields[fam] = {"argv": spec["argv"], "seconds": seconds, "launches": want,
+                       "rows": [{k: v for k, v in r.items() if k not in ("task", "dataset")}
+                                for r in rows],
+                       "ddpm_diff_over_tol": {k: abs(rows[0][k] - m) / t
+                                              for k, (m, t) in REPORT_JAX[fam].items()}}
+
+    for fam, spec in FEWSTEP_SPECS.items():
+        rspec = REPORT_SPECS[fam]
+        ckpt = os.path.join(REPO, "ckpts", rspec["ckpt"])
+        argv = ["--task", rspec["task"], "--ckpt", ckpt, "--datasets", paths[fam],
+                "--backend", spec["backend"], *spec["argv"]]
+        printed = io.StringIO()
+        resblock.LAUNCHES = mega.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            fewstep.main(argv)
+        seconds = time.perf_counter() - t0
+        rows = [json.loads(line) for line in printed.getvalue().splitlines()
+                if line.startswith("{")]
+        T, blocks = _forwards_and_blocks(rspec["task"], ckpt, dev)
+        n_test = len(TASKS[rspec["task"]].load(paths[fam]).X_test)
+        steps = [int(s) for s in spec["argv"][spec["argv"].index("--steps") + 1:]]
+        want = -(-n_test // 512) * (T + sum(steps)) * (blocks if spec["backend"] == "fused" else 1)
+        counted, other = ((resblock.LAUNCHES, mega.LAUNCHES) if spec["backend"] == "fused"
+                          else (mega.LAUNCHES, resblock.LAUNCHES))
+        check(counted == want and other == 0, f"fewstep {fam}: {want} {spec['backend']} "
+                                              f"launches, counted {counted} and {other}")
+        launches[spec["backend"]] += want
+        check([(r["sampler"], r["steps"]) for r in rows]
+              == [("ddpm", T)] + [("ddim", s) for s in steps]
+              and all(np.isfinite(v) for r in rows for v in r.values() if isinstance(v, float)),
+              f"fewstep {fam}: rows {rows}")
+        if fam == "nu":
+            for k, (mean, tol) in REPORT_JAX["nu"].items():
+                check(abs(rows[1][k] - mean) <= tol, f"fewstep nu DDIM-3: {k} {rows[1][k]} vs "
+                                                     f"the JAX package's {mean} (+-{tol})")
+        fields[f"fewstep_{fam}"] = {"backend": spec["backend"], "seconds": seconds,
+                                    "launches": want,
+                                    "rows": [{k: v for k, v in r.items()
+                                              if k not in ("task", "dataset")} for r in rows]}
     return fields, launches
 
 
@@ -2143,6 +2547,14 @@ def main() -> int:
     # -- eval_zoo: the zoo's headline rows --------------------------------------------
     emit("eval_zoo", **eval_rows(EVAL_ZOO_SPECS, EVAL_ZOO_JAX))
 
+    # -- baselines, train_baselines, report: DiffSG against GD, MTFNN and PPO -----------
+    emit("baselines", **baselines_phase(dev))
+    emit("train_baselines", **train_baselines_phase(dev))
+    report_out, report_launches = report_phase(dev)
+    for backend, count in report_launches.items():
+        new_launches[backend] += count
+    emit("report", **report_out)
+
     # -- kernels: one line per kernel ---------------------------------------------
     main_shapes = [r for r in per_shape if r["per_forward"] and r["net"] == "msr"]
     bounds = {}
@@ -2160,8 +2572,8 @@ def main() -> int:
          "library_ms": None,
          "per": f"one MSR-3c forward: the 27 launches at {ROWS} rows; launches over the "
                 f"2 fused serving requests, serve_graph's 8 fused requests (4 replayed), and "
-                f"serve_co, the multi-task phases, eval, train, train_clis, serve_multi_zoo and "
-                f"eval_zoo ({new_launches['fused']})",
+                f"serve_co, the multi-task phases, eval, train, train_clis, serve_multi_zoo, "
+                f"eval_zoo and report ({new_launches['fused']})",
          "co_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
                               if r["net"] == "co"),
          "multi80_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
@@ -2184,8 +2596,8 @@ def main() -> int:
                 f"serve_nu ({serve_nu_launches}), serve_nu_bf16 ({serve_nu_bf16_launches}), "
                 f"serve_graph ({serve_graph_launches['mega']}), serve_best_of "
                 f"({serve_best_of_launches}) and the CO, MSR-variant, conditioned-NU, "
-                f"refinement, multi-task, train, train_clis and serve_multi_zoo phases "
-                f"({new_launches['mega']})",
+                f"refinement, multi-task, train, train_clis, serve_multi_zoo and report "
+                f"phases ({new_launches['mega']})",
          "cases": [{k: r[k] for k in ("net", "dtype", "rows", "tile_rows", "max_abs_err",
                                       "mean_abs_err", "kernel_ms", "plain_ms", "plain_bf16_ms",
                                       "bound_ms", "bound_by")}

@@ -1,13 +1,14 @@
 """Structured metrics logging.
 
-Counterpart of ``diffsg_tpu/utils/metrics.py::MetricsLogger``: each record
-goes as one JSON line to a file (and to standard output), with the seconds
-since the logger was made, so that training logs and eval reports are
-machine-readable.
+Counterpart of ``diffsg_tpu/utils/metrics.py``: ``MetricsLogger`` writes
+each record as one JSON line to a file (and to standard output), with the
+seconds since the logger was made, so that training logs and eval reports
+are machine-readable; ``write_csv`` writes small tables.
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import pathlib
 import time
@@ -31,3 +32,15 @@ class MetricsLogger:
         if self.also_print:
             print(json.dumps(rec, default=float))
         return rec
+
+
+def write_csv(path: str, rows, header=None) -> None:
+    """Small CSV writer for trajectory dumps (as the reference's header-less
+    pandas ``to_csv`` outputs)."""
+    p = pathlib.Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    with open(p, "w", newline="") as f:
+        w = csv.writer(f)
+        if header:
+            w.writerow(header)
+        w.writerows(rows)

@@ -5,7 +5,9 @@ The port's modules keep flax's names and layouts (``models/unet1d.py``):
 ``LayerNorm`` holds ``scale`` and ``bias``; submodules are named as in flax
 (``down_{i}``, ``up_{i}``, ``middle.res1``, ...). A state-dict key is the
 flax path joined with dots, so the mapping is one-to-one and needs no
-transposes.
+transposes. The baselines keep flax's names as well: the MTFNN ``MLP``'s
+``lin1..linN`` and ``PPOAgent``'s ``critic/{0,2,4,6}``, ``actor/{0,2,4,6}``
+and ``log_std`` (1, A).
 
 The (in, out) layout is also the one the fused residual-block kernel
 (``csrc/resblock.cu``) reads: element ``W[k, j]`` lies at ``k * out + j``, so

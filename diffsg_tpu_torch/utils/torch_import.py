@@ -1,9 +1,10 @@
-"""Read a reference torch DDPM checkpoint (``.pt``) into the port.
+"""Read reference torch checkpoints (``.pt``) into the port.
 
-Counterpart of ``diffsg_tpu/utils/torch_import.py::ddpm_from_torch``. The
-reference ships ``state_dict`` files holding 8 schedule buffers, the live
-net under ``model.*`` and an EMA copy under ``ema.module.*`` (with
-``ema.n_averaged``). The conversion:
+Counterpart of ``diffsg_tpu/utils/torch_import.py``. The reference ships
+``state_dict`` files: a DDPM holds 8 schedule buffers, the live net under
+``model.*`` and an EMA copy under ``ema.module.*`` (with
+``ema.n_averaged``); a baseline (MTFNN, PPO) is a plain module state dict.
+The conversion:
 
 * ``nn.Linear.weight`` (out, in) -> ``Dense.kernel`` (in, out): transposed;
 * ``nn.LayerNorm.weight`` -> ``LayerNorm.scale``;
@@ -15,7 +16,7 @@ never code.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +38,27 @@ def _port_key(torch_key: str) -> str:
             out.append(tokens[i])
             i += 1
     return ".".join(out)
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint's state dict as CPU tensors, read without
+    executing code."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+def sequential_mlp_from_torch(sd: Dict[str, torch.Tensor], layer_names: Sequence[str],
+                              prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The ``nn.Linear`` layers ``layer_names`` (``["lin1", "lin2", ...]``)
+    of a flat torch MLP's state dict, as the state dict of float32 CPU
+    tensors that the port's ``baselines.mtfnn.MLP`` loads with
+    ``load_state_dict(..., strict=True)``: ``{name}.kernel`` (in, out) and
+    ``{name}.bias``."""
+    state: Dict[str, torch.Tensor] = {}
+    for name in layer_names:
+        state[f"{name}.kernel"] = sd[f"{prefix}{name}.weight"].to(torch.float32).t().contiguous()
+        state[f"{name}.bias"] = sd[f"{prefix}{name}.bias"].to(torch.float32).clone()
+    return state
 
 
 def unet_state_from_torch(sd: Dict[str, torch.Tensor], prefix: str = "model."
@@ -67,7 +89,7 @@ def ddpm_from_torch(pt_path: str, device: DeviceLike = "cuda"
     ``device``, n_averaged). ``state`` is the live ``model.*`` net, which
     serving reads, as ``Solver.from_torch_checkpoint`` does in the JAX
     package."""
-    sd = torch.load(pt_path, map_location="cpu", weights_only=True)
+    sd = load_torch_state_dict(pt_path)
     sched = schedule_from_betas(sd["betas"].double().numpy().astype(np.float64), device=device)
     n_averaged = int(sd["ema.n_averaged"]) if "ema.n_averaged" in sd else 0
     return (unet_state_from_torch(sd, "model."), unet_state_from_torch(sd, "ema.module."),

@@ -692,3 +692,108 @@ def test_cuda_zoo_faces_kernels_match_plain(face):
             torch.cuda.synchronize()
             assert counter.LAUNCHES == before + per_forward, backend
             torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+def _gd_inputs(fam, rows=4096, seed=0):
+    """(solver, conditions) of a GD family at ``rows`` rows: CO features and
+    MSR gains in physical units, NU coordinates loader-normalized."""
+    from diffsg_tpu_torch.baselines import co_gd_solve, msr_gd_solve, nu_gd_solve
+
+    rng = np.random.default_rng(seed)
+    if fam == "co":
+        return co_gd_solve, rng.uniform(0.01, 10.0, (rows, 9)).astype(np.float32)
+    if fam == "msr":
+        return (lambda g: msr_gd_solve(g, W=10.0)), rng.uniform(0.5, 2.5, (rows, 3)).astype(
+            np.float32)
+    return (lambda c: nu_gd_solve(c, P_sum=18.0)), rng.uniform(0, 1, (rows, 6)).astype(
+        np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", ["co", "msr", "nu"])
+def test_cuda_gd_matches_cpu(fam):
+    """GD's 100 iterations on the card against the CPU on the same rows:
+    within 1e-5 of the magnitude. Every op rounds alone on both (and the row
+    sums are left folds), which CO's iteration needs: it grows a one-ulp
+    difference to O(1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    solve, X = _gd_inputs(fam)
+    cpu = solve(torch.from_numpy(X))
+    card = solve(torch.from_numpy(X).cuda()).cpu()
+    assert torch.isfinite(card).all()
+    assert float((card - cpu).abs().max()) <= 1e-5 * float(cpu.abs().max())
+
+
+def _logged(line):
+    """The numbers of an epoch's log line ("... loss 0.206475", "... actor
+    0.7004 critic 11.6247 reward 2.3226")."""
+    return [float(t) for t in line.split(":", 1)[1].split()[1::2]]
+
+
+def _params_within(cpu, card, lr):
+    """The train phase's bounds: at most 1e-4 of the parameters off by more
+    than 1e-4, none by more than 2 lr (Adam moves a parameter whose gradient
+    is near zero by up to lr, whatever the gradient's rounding)."""
+    from diffsg_tpu_torch.utils import params_from_jax
+
+    a, b = params_from_jax(cpu), params_from_jax(card)
+    diff = torch.cat([(a[k] - b[k]).abs().flatten() for k in a])
+    assert float((diff > 1e-4).float().mean()) <= 1e-4 and float(diff.max()) <= 2 * lr
+
+
+@pytest.mark.cuda
+def test_cuda_mtfnn_step_matches_cpu():
+    """One train_mtfnn step (512 rows, the CO net) on the card against the
+    CPU: one init, one permutation, TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diffsg_tpu_torch.baselines import MTFNNConfig, mtfnn_co_model, train_mtfnn
+    from diffsg_tpu_torch.train import torch_style_init
+    from diffsg_tpu_torch.utils import params_to_jax
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    X, Y = rng.uniform(0, 1, (512, 9)), rng.dirichlet(np.ones(3), 512)
+    init = params_to_jax(torch_style_init(mtfnn_co_model(), torch.Generator().manual_seed(1)))
+    perm = torch.from_numpy(rng.permutation(512))
+    out = {}
+    for device in ("cpu", "cuda"):
+        logs = []
+        out[device] = (train_mtfnn(mtfnn_co_model(), X, Y, MTFNNConfig(epochs=1),
+                                   log_fn=logs.append, log_every=1, init_params=init,
+                                   device=device, draws=lambda e: perm), logs[0])
+    assert _logged(out["cuda"][1]) == pytest.approx(_logged(out["cpu"][1]), abs=2e-6)
+    _params_within(out["cpu"][0], out["cuda"][0], MTFNNConfig.lr)
+
+
+@pytest.mark.cuda
+def test_cuda_ppo_step_matches_cpu():
+    """One train_ppo step (512 rows, CO's rewards) on the card against the
+    CPU: one init, the same injected draws, TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diffsg_tpu_torch.baselines import PPOConfig, PPODraws, orthogonal_ppo_init, train_ppo
+    from diffsg_tpu_torch.tools.train_baselines import ppo_recipe
+    from diffsg_tpu_torch.utils import params_to_jax
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_d = {"node_num": 3, "scaler_min": 0.0016, "scaler_max": 9.997}
+    rng = np.random.default_rng(2)
+    X = rng.uniform(0, 1, (512, 9))
+    Y = rng.dirichlet(np.ones(3), 512) * (rng.uniform(size=(512, 1)) > 0.1)
+    agent = ppo_recipe("co", cfg_d)[0]
+    init = params_to_jax(orthogonal_ppo_init(agent, torch.Generator().manual_seed(2)))
+    z0 = rng.normal(size=(512, 3)).astype(np.float32)
+    draws = PPODraws(torch.from_numpy(rng.permutation(512)),
+                     torch.from_numpy(rng.normal(size=(1, 512, 3)).astype(np.float32)))
+    out = {}
+    for device in ("cpu", "cuda"):
+        agent, _, env_fn, transform, _, _ = ppo_recipe("co", cfg_d)
+        logs = []
+        params, _ = train_ppo(agent, X, Y, env_fn, transform, PPOConfig(epochs=1),
+                              log_fn=logs.append, log_every=1, init_params=init, device=device,
+                              a0=z0, draws=lambda e: draws)
+        out[device] = (params, logs[0])
+    assert _logged(out["cuda"][1]) == pytest.approx(_logged(out["cpu"][1]), abs=2e-4)
+    _params_within(out["cpu"][0], out["cuda"][0], PPOConfig.lr)
