@@ -79,7 +79,19 @@ their answers:
   (``train_baselines``: 2 epochs for each shipped checkpoint's pair) and the
   comparison (``report``): ``tools/report.py`` on CO, MSR-3c and NU, a DDPM
   row through ``fused`` held to ``REPORT_JAX`` beside the GD, MTFNN and PPO
-  rows, and ``tools/fewstep.py`` on NU (``mega``) and CO (``fused``).
+  rows, and ``tools/fewstep.py`` on NU (``mega``) and CO (``fused``);
+* the device mesh (``mesh``): this process as a world of one NCCL rank,
+  ``make_mesh(1)``, the meshed Solver against the unmeshed one on MSR-3c
+  (``fused``) and NU (``mega``) from their buckets' CUDA graphs with the
+  collectives captured inside, in turns, bit for bit; a CO training epoch
+  meshed against unmeshed; ``parallel.dryrun.dryrun_multichip(1)`` in a
+  spawned rank;
+* ``legacy``: ``diffusion.legacy.legacy_sample`` on the card against the
+  CPU on the same injected draws, an attention net's ``plain`` forward card
+  against CPU, and the CFG-pair backend (``pair``): its MSR-3c forward held
+  to ``plain`` and timed beside ``plain`` and ``fused``, and one ``msr_temp``
+  request served through it, eagerly and from its graph, held to
+  ``JAX_QUALITY``.
 
 The residual-block kernel is held to its plain version at every block
 shape of the MSR-3c forward (16,384 rows) and of the CO forward (65,536
@@ -1409,6 +1421,217 @@ def report_phase(dev):
     return fields, launches
 
 
+MESH_STORE = os.path.join(REPO, "build", "mesh_store")
+
+
+def mesh_phase(dev, solver, nu_solver, X, XN, serve, new_launches):
+    """The ``mesh`` phase: this process joins a world of one NCCL rank
+    (``init_process``, a ``file://`` store under ``build/``), builds
+    ``make_mesh(1)`` and serves MSR-3c (``fused``, bucket 8,192, DDPM T=100,
+    omega 500) and NU ``nu_direct`` (``mega``, DDIM-3, bucket 524,288) from
+    the buckets' CUDA graphs, the collectives captured inside, meshed and
+    unmeshed in turns (unmeshed, meshed, meshed, unmeshed; two seeds each):
+    at world 1 the collectives add nothing, so the answers are equal bit for
+    bit. Then one CO training epoch meshed against unmeshed (bit for bit;
+    the ``train`` phase's bounds otherwise), and ``dryrun_multichip(1)`` in
+    a spawned process. A failure of NCCL or of a capture raises."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from diffsg_tpu_torch.data import ensure_datasets
+    from diffsg_tpu_torch.parallel import init_process, make_mesh
+    from diffsg_tpu_torch.parallel.dryrun import dryrun_multichip
+    from diffsg_tpu_torch.serve import Solver
+    from diffsg_tpu_torch.tasks import TASKS
+    from diffsg_tpu_torch.train import train_ddpm
+
+    os.makedirs(os.path.dirname(MESH_STORE), exist_ok=True)
+    if os.path.exists(MESH_STORE):
+        os.remove(MESH_STORE)
+    t0 = time.perf_counter()
+    init_process(0, 1, f"file://{MESH_STORE}", "cuda")
+    # make_mesh runs one eager all-reduce on each of its groups, so NCCL's
+    # communicator exists before a graph captures a collective on it.
+    mesh = make_mesh(1)
+    out = {"backend": dist.get_backend(), "shape": mesh.shape,
+           "device_count": torch.cuda.device_count(), "init_s": time.perf_counter() - t0}
+    check(out["backend"] == "nccl", f"mesh: NCCL process group, got {out['backend']}")
+    nu_kw = {"omega": NU_OMEGA, "sampler": "ddim", "n_steps": NU_STEPS}
+    for name, base, backend, B, Xm, kw, per_req in (
+            ("msr", solver, "fused", SERVE_B, X, {}, 2700),
+            ("nu", nu_solver, "mega", NU_B, XN, nu_kw, NU_STEPS)):
+        solvers = {m: Solver(base.task, base.model, base.sched, base.config, backend=backend,
+                             buckets=(B,), mesh=mesh if m == "meshed" else None)
+                   for m in ("unmeshed", "meshed")}
+        capture_s = {}
+        for m, s_ in solvers.items():
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                s_.warmup(configs=[kw])
+            torch.cuda.synchronize()
+            capture_s[m] = time.perf_counter() - t1
+            check(len(s_._graphs) == 1, f"mesh {name} {m}: one graph captured")
+            captured = next(iter(s_._graphs.values())).launches
+            check(captured == ((per_req, 0) if backend == "fused" else (0, per_req)),
+                  f"mesh {name} {m}: the graph captured {captured} launches, not {per_req}")
+        runs = []
+        for m in ("unmeshed", "meshed", "meshed", "unmeshed"):
+            reqs, n_fused, n_mega = serve(lambda seed: solvers[m].solve(Xm, seed=seed, **kw),
+                                          range(2))
+            counted, other = (n_fused, n_mega) if backend == "fused" else (n_mega, n_fused)
+            check(counted == 2 * per_req and other == 0,
+                  f"mesh {name} {m}: {per_req} {backend} launches a request, counted {counted} "
+                  f"and {other}")
+            new_launches[backend] += counted
+            runs.append((m, reqs))
+        ref = {r["seed"]: r["P"] for r in runs[0][1]}
+        diff = max(float(np.abs(r["P"] - ref[r["seed"]]).max()) for _, reqs in runs for r in reqs)
+        check(all(np.array_equal(r["P"], ref[r["seed"]]) for _, reqs in runs for r in reqs),
+              f"mesh {name}: meshed and unmeshed answers differ (max abs {diff})")
+        check(bool(np.isfinite(ref[0]).all()) and ref[0].shape == (B, base.task.data_dim(
+            base.config)), f"mesh {name}: finite solutions of shape {ref[0].shape}")
+        out[name] = {"B": B, "backend": backend, **kw, "capture_s": capture_s,
+                     "launches_per_request": per_req, "max_abs_diff": diff,
+                     "turns": [{"mode": m, "request_s": [r["s"] for r in reqs],
+                                "solutions_per_s": B / float(np.median([r["s"] for r in reqs]))}
+                               for m, reqs in runs]}
+        del solvers, runs, ref
+        torch.cuda.empty_cache()
+
+    # One CO epoch, meshed against unmeshed, from train_ddpm's own init.
+    ensure_datasets(["3nodes_50000samples_new.csv"])
+    task = TASKS["co"]
+    data = task.load(os.path.join(REPO, "datasets", "3nodes_50000samples_new.csv"))
+    cfg = dataclasses.replace(task.train_config, epochs=1)
+    trained, epoch_s, losses = {}, {}, {}
+    for m in ("unmeshed", "meshed"):
+        logged = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.enable_grad():
+            trained[m] = train_ddpm(task.build_model(data.config), data.X_train, data.Y_train,
+                                    cfg, log_every=1, log_fn=logged.append, device=dev,
+                                    mesh=mesh if m == "meshed" else None)[0]
+        torch.cuda.synchronize()
+        epoch_s[m] = time.perf_counter() - t1
+        losses[m] = float(logged[-1].rsplit(" ", 1)[1])
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [np.asarray(tree)]
+
+    a, b = leaves(trained["unmeshed"]), leaves(trained["meshed"])
+    off = np.concatenate([np.abs(x - y).ravel() for x, y in zip(a, b)])
+    bitwise = all(np.array_equal(x, y) for x, y in zip(a, b))
+    check(bitwise or (float((off > TRAIN_PARAM_ATOL).mean()) <= TRAIN_PARAM_SHARE
+                      and abs(losses["meshed"] - losses["unmeshed"])
+                      <= TRAIN_LOSS_RTOL * abs(losses["unmeshed"])),
+          f"mesh: the meshed CO epoch off the unmeshed one (max {float(off.max())})")
+    out["train_co"] = {"rows": int(data.X_train.shape[0]), "batch": cfg.batch_size,
+                       "epoch_s": epoch_s, "loss": losses, "bitwise": bitwise,
+                       "max_abs_param_diff": float(off.max())}
+    dist.destroy_process_group()
+
+    t1 = time.perf_counter()
+    dry = dryrun_multichip(1, device="cuda", timeout_s=300)
+    check(dry["serve_max_abs_err"] is not None and dry["serve_max_abs_err"] < 1e-3,
+          f"mesh: dryrun_multichip(1) serve error {dry['serve_max_abs_err']}")
+    out["dryrun"] = {**dry, "s": time.perf_counter() - t1}
+    return out
+
+
+LEGACY_B, LEGACY_T = 1024, 20
+LEGACY_ATOL = 1e-4
+
+
+def legacy_phase(dev, model):
+    """The ``legacy`` phase: ``legacy_sample`` (MSR clamp, T=20, 1,024 rows,
+    the MSR-3c net as its denoiser) on the card against the CPU on the same
+    injected Dirichlet draws; an attention net (MSR-3c's widths, attention
+    at every level and in the middle, seeded weights) on ``plain``, card
+    against CPU; and the ``pair`` backend's MSR-3c forward at 16,384 rows
+    held to ``plain`` and timed beside ``plain`` and ``fused``."""
+    import copy
+
+    import torch
+
+    from diffsg_tpu_torch.diffusion import cosine_schedule
+    from diffsg_tpu_torch.diffusion.legacy import legacy_sample
+    from diffsg_tpu_torch.models import UNet1D, unet_apply_fn, unet_forward_fused
+    from diffsg_tpu_torch.ops import step_sum_rate
+
+    out = {}
+    rng = np.random.default_rng(21)
+    B, T = LEGACY_B, LEGACY_T
+    cond = rng.uniform(0, 1, (B, 3)).astype(np.float32)
+    gains = rng.uniform(0.5, 2.5, (B, 3)).astype(np.float32)
+    init = rng.dirichlet(np.ones(3), B).astype(np.float32)
+    steps = (rng.dirichlet(np.full(3, 3.0), (T, B)) - 1.0 / 3).astype(np.float32)
+    cpu_model = copy.deepcopy(model).cpu()
+
+    def run(net, device):
+        ones = torch.ones(B, 1, device=device)
+        g = torch.tensor(gains, device=device)
+        with torch.no_grad():
+            y0, rec = legacy_sample(lambda y, t, c: net(y, t / T, c, ones),
+                                    cosine_schedule(T, device=device),
+                                    torch.tensor(cond, device=device), 3, task="MAX SUM RATE",
+                                    init=torch.tensor(init), step_noise=torch.tensor(steps),
+                                    record_objective=lambda y: step_sum_rate(y, g)[0].mean())
+        return y0.cpu().numpy(), [float(r) for r in rec]
+
+    t0 = time.perf_counter()
+    y_card, rec_card = run(model, dev)
+    card_s = time.perf_counter() - t0
+    y_cpu, rec_cpu = run(cpu_model, torch.device("cpu"))
+    err = float(np.abs(y_card - y_cpu).max())
+    check(bool(np.isfinite(y_card).all()) and y_card.min() >= 0 and y_card.max() <= 1,
+          "legacy_sample: finite, in [0, 1]")
+    check(err <= LEGACY_ATOL, f"legacy_sample card vs CPU: max abs {err} > {LEGACY_ATOL}")
+    out["legacy_sample"] = {"B": B, "T": T, "max_abs_err": err, "atol": LEGACY_ATOL,
+                            "card_s": card_s, "record_card": rec_card[-1],
+                            "record_cpu": rec_cpu[-1]}
+
+    torch.manual_seed(3)
+    attn = UNet1D(input_dim=3, proj_dim=128, cond_dim=3, dims=(64, 32, 16, 8),
+                  is_attn=(True,) * 4, middle_attn=True, n_blocks=2).eval()
+    y = torch.tensor(rng.normal(size=(ROWS, 3)), dtype=torch.float32)
+    c = torch.tensor(rng.uniform(0, 1, (ROWS, 3)), dtype=torch.float32)
+    mask = torch.cat([torch.zeros(ROWS // 2, 1), torch.ones(ROWS // 2, 1)])
+    t = torch.full((1,), 0.37)
+    with torch.no_grad():
+        want = attn(y, t, c, mask)
+        attn_dev = attn.to(dev)
+        args = [a.to(dev) for a in (y, t, c, mask)]
+        got = attn_dev(*args).cpu()
+        plain_ms = graph_ms(lambda: attn_dev(*args), reps=10)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(err <= FORWARD_RTOL * scale, f"attention net card vs CPU: {err} vs {scale}")
+    out["attention"] = {"rows": ROWS, "max_abs_err": err, "out_max_abs": scale,
+                        "plain_ms": plain_ms}
+
+    half = torch.tensor(rng.normal(size=(ROWS // 2, 3)), dtype=torch.float32, device=dev)
+    ch = torch.tensor(rng.uniform(0, 1, (ROWS // 2, 3)), dtype=torch.float32, device=dev)
+    y2, c2 = torch.cat([half, half]), torch.cat([ch, ch])
+    m2, t2 = mask.to(dev), t.to(dev)
+    pair = unet_apply_fn(model, "pair")
+    with torch.no_grad():
+        ref = model(y2, t2, c2, m2)
+        got = pair(y2, t2, c2, m2)
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        check(err <= FORWARD_RTOL * scale, f"pair forward vs plain: {err} vs {scale}")
+        times = {name: graph_ms(fn, reps=10) for name, fn in (
+            ("pair_ms", lambda: pair(y2, t2, c2, m2)), ("plain_ms", lambda: model(y2, t2, c2, m2)),
+            ("fused_ms", lambda: unet_forward_fused(model, y2, t2, c2, m2)))}
+    out["pair_forward"] = {"rows": ROWS, "max_abs_err": err, "out_max_abs": scale, **times}
+    return out
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, "s": round(time.perf_counter() - T_START, 3), **fields}),
           flush=True)
@@ -1718,19 +1941,28 @@ def main() -> int:
                                             f"{mean_err} > {mean_tol}")
                 del noise
             check(err <= tol, f"mega {net} {dtype} rows {rows}: max abs err {err} > {tol}")
+            # Few repeats at the 1,000-row cases (their check is the point)
+            # and at the big ones; the script's time holds the rest to 10 x 3.
             big = rows > ROWS or (net in ("p256", "multi80") and rows >= ROWS)
-            reps, replays = (3, 2) if big else (20, 3)
+            reps, replays = (3, 2) if big or rows < ROWS else (10, 3)
             k_ms = graph_ms(lambda: mega.launch_mega(packed, ys, sc, st), reps, replays)
+            # Every tile height on the two serving nets of the main path; the
+            # wrapper's and the eager call's times on MSR-3c f32 alone (the
+            # depth these sweeps had is cut to hold the script's time).
             tile_ms = {tr: graph_ms(lambda: mega.launch_mega(packed, ys, sc, st, tr), reps,
                                     replays)
                        for tr in mega.TILE_ROWS[dtype]
-                       if rows >= ROWS and mega.mega_smem_bytes(packed, dtype, tr) <= mega.SMEM_MAX}
-            w_ms = graph_ms(lambda: mega.unet_forward_mega(net_model, y, t, cond, mask, cd,
-                                                           packed), reps, replays)
+                       if rows >= ROWS and net in ("msr", "nu")
+                       and mega.mega_smem_bytes(packed, dtype, tr) <= mega.SMEM_MAX}
+            main_case = (net, rows, cd) == ("msr", ROWS, None)
+            w_ms = (graph_ms(lambda: mega.unet_forward_mega(net_model, y, t, cond, mask, cd,
+                                                            packed), reps, replays)
+                    if main_case else None)
             p_ms = graph_ms(lambda: mega.unet_forward_mega_reference(net_model, y, t, cond,
                                                                      mask, cd), reps, replays)
-            call_ms = cuda_ms(lambda: mega.unet_forward_mega(net_model, y, t, cond, mask, cd,
-                                                             packed), reps=10 if big else 20)
+            call_ms = (cuda_ms(lambda: mega.unet_forward_mega(net_model, y, t, cond, mask, cd,
+                                                              packed), reps=20)
+                       if main_case else None)
             # The plain bf16 backend (cuBLAS on a bf16 copy of the net): the
             # counterpart of JAX's xla_bf16, not a library call of this function.
             plain_bf16_ms = None
@@ -2162,7 +2394,7 @@ def main() -> int:
         steps = base.sched.T if sampler == "ddpm" else sampler[1]
         if backend == "mega":
             return steps
-        if backend == "plain":
+        if backend in ("plain", "pair"):
             return 0
         return steps * len(block_shapes(getattr(base.model, "inner", base.model))[0])
 
@@ -2555,6 +2787,15 @@ def main() -> int:
         new_launches[backend] += count
     emit("report", **report_out)
 
+    # -- mesh: the device mesh over NCCL, a world of one rank ---------------------------
+    emit("mesh", **mesh_phase(dev, solver, nu_solver, X, XN, serve, new_launches))
+
+    # -- legacy: the legacy sampler, an attention net and the CFG-pair backend ----------
+    legacy_out = legacy_phase(dev, model)
+    pair_row = serve_spec("msr_temp", "pair", SERVE_B, [0])
+    legacy_out["pair_request"] = public_row(pair_row)
+    emit("legacy", **legacy_out)
+
     # -- kernels: one line per kernel ---------------------------------------------
     main_shapes = [r for r in per_shape if r["per_forward"] and r["net"] == "msr"]
     bounds = {}
@@ -2573,7 +2814,7 @@ def main() -> int:
          "per": f"one MSR-3c forward: the 27 launches at {ROWS} rows; launches over the "
                 f"2 fused serving requests, serve_graph's 8 fused requests (4 replayed), and "
                 f"serve_co, the multi-task phases, eval, train, train_clis, serve_multi_zoo, "
-                f"eval_zoo and report ({new_launches['fused']})",
+                f"eval_zoo, report and mesh ({new_launches['fused']})",
          "co_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
                               if r["net"] == "co"),
          "multi80_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
@@ -2596,7 +2837,7 @@ def main() -> int:
                 f"serve_nu ({serve_nu_launches}), serve_nu_bf16 ({serve_nu_bf16_launches}), "
                 f"serve_graph ({serve_graph_launches['mega']}), serve_best_of "
                 f"({serve_best_of_launches}) and the CO, MSR-variant, conditioned-NU, "
-                f"refinement, multi-task, train, train_clis, serve_multi_zoo and report "
+                f"refinement, multi-task, train, train_clis, serve_multi_zoo, report and mesh "
                 f"phases ({new_launches['mega']})",
          "cases": [{k: r[k] for k in ("net", "dtype", "rows", "tile_rows", "max_abs_err",
                                       "mean_abs_err", "kernel_ms", "plain_ms", "plain_bf16_ms",

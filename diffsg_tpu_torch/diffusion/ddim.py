@@ -104,9 +104,6 @@ def ddim_sample(
                 (B, data_dim), generator=generator, dtype=dtype, device=dev)
             y = y + sigma * z
         if i < renorm_steps:
-            if valid_mask is None:
-                mean, var = y.mean(), y.var()
-            else:
-                mean, var = masked_mean_var(y, valid_mask)
+            mean, var = masked_mean_var(y, valid_mask)
             y = (y - mean) / torch.sqrt(var)
     return y

@@ -34,6 +34,7 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from ..parallel.mesh import all_reduce_sum, current_mesh
 from .schedule import Schedule
 
 # apply_fn(y_t, t_norm, cond, cond_mask) -> model output (B, D)
@@ -47,6 +48,26 @@ def q_sample(sched: Schedule, y0: torch.Tensor, t: torch.Tensor,
     in ``[0, T)``."""
     return (sched.sqrt_alphas_cumprod[t][:, None] * y0
             + sched.sqrt_one_minus_alphas_cumprod[t][:, None] * noise)
+
+
+def ddpm_draws(T: int, shape: Tuple[int, int], uncond_prob: float,
+               generator: Optional[torch.Generator], device: torch.device, dtype: torch.dtype,
+               t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+               cond_mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The loss's draws for a batch of ``shape`` (B, D), those not given
+    drawn from ``generator`` in this order: ``t`` uniform in ``[0, T)``,
+    ``noise`` standard normal, ``cond_mask`` Bernoulli with keep-probability
+    ``1 - uncond_prob``."""
+    B = shape[0]
+    if t is None:
+        t = torch.randint(0, T, (B,), generator=generator, device=device)
+    if noise is None:
+        noise = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    if cond_mask is None:
+        keep = torch.full((B, 1), 1.0 - uncond_prob, device=device, dtype=dtype)
+        cond_mask = torch.bernoulli(keep, generator=generator)
+    return t, noise, cond_mask
 
 
 def ddpm_loss(apply_fn: ApplyFn, sched: Schedule, y0: torch.Tensor, cond: torch.Tensor,
@@ -67,13 +88,9 @@ def ddpm_loss(apply_fn: ApplyFn, sched: Schedule, y0: torch.Tensor, cond: torch.
     if parameterization not in ("eps", "x0", "v"):
         raise ValueError(f"unknown parameterization {parameterization!r}")
     B, T, dev, dtype = y0.shape[0], sched.T, y0.device, y0.dtype
-    if t is None:
-        t = torch.randint(0, T, (B,), generator=generator, device=dev)
-    if noise is None:
-        noise = torch.randn(y0.shape, generator=generator, device=dev, dtype=dtype)
-    if cond_mask is None:
-        keep = torch.full((B, 1), 1.0 - uncond_prob, device=dev, dtype=dtype)
-        cond_mask = torch.bernoulli(keep, generator=generator)
+    if t is None or noise is None or cond_mask is None:
+        t, noise, cond_mask = ddpm_draws(T, y0.shape, uncond_prob, generator, dev, dtype,
+                                         t, noise, cond_mask)
     y_t = q_sample(sched, y0, t, noise)
     pred = apply_fn(y_t, t.to(dtype) / T, cond, cond_mask)
     if parameterization == "eps":
@@ -95,13 +112,31 @@ class SampleTrace(NamedTuple):
     eps: torch.Tensor
 
 
-def masked_mean_var(y: torch.Tensor, valid_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def masked_mean_var(y: torch.Tensor, valid_mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean and unbiased variance over the valid rows (``valid_mask`` (B, 1),
-    1.0 real / 0.0 padding)."""
-    cnt = valid_mask.sum() * y.shape[1]
-    mean = (y * valid_mask).sum() / cnt
-    var = (valid_mask * (y - mean) ** 2).sum() / (cnt - 1.0)
-    return mean, var
+    1.0 real / 0.0 padding; None: every row, as ``y.mean()``, ``y.var()``).
+
+    Under an active mesh (``parallel.mesh``) ``y`` is the rank's shard: the
+    sum and the count are summed over dp, then the sum of squares about the
+    global mean, so the statistics are the whole batch's."""
+    mesh = current_mesh()
+    if valid_mask is None and mesh is None:
+        return y.mean(), y.var()
+    if valid_mask is None:
+        cnt = y.new_full((), float(y.numel()))
+        total = y.sum()
+    else:
+        cnt = valid_mask.sum() * y.shape[1]
+        total = (y * valid_mask).sum()
+    if mesh is not None:
+        total, cnt = all_reduce_sum(torch.stack([total, cnt]), mesh).unbind()
+    mean = total / cnt
+    sq = (y - mean) ** 2
+    sq = (sq if valid_mask is None else valid_mask * sq).sum()
+    if mesh is not None:
+        sq = all_reduce_sum(sq, mesh)
+    return mean, sq / (cnt - 1.0)
 
 
 def cfg_net(apply_fn: ApplyFn, cond: torch.Tensor, omega: Omega, skip_uncond: bool,
@@ -149,10 +184,7 @@ def _reverse_step(sched: Schedule, y_t: torch.Tensor, i: int, eps_cfg: torch.Ten
         noise_coeff = (1.0 - sched.alphas_cumprod[prev]) / (1.0 - sched.alphas_cumprod[i])
         y_next = y_next + noise_coeff * z
     if i > T - 1 - renorm_steps:
-        if valid_mask is None:
-            mean, var = y_next.mean(), y_next.var()
-        else:
-            mean, var = masked_mean_var(y_next, valid_mask)
+        mean, var = masked_mean_var(y_next, valid_mask)
         y_next = (y_next - mean) / torch.sqrt(var)
     return y_next
 

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import tp_linear
+
 # torch nn.LayerNorm's epsilon, pinned in the JAX package too.
 _LN_EPS = 1e-5
 
@@ -29,17 +31,24 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    """``y = x @ kernel + bias`` with flax's (in, out) kernel layout."""
+    """``y = x @ kernel + bias`` with flax's (in, out) kernel layout.
+
+    ``tp`` is the mesh over whose tp axis ``parallel.mesh.shard_params``
+    split the kernel by columns (None: whole): the Dense then computes its
+    columns and gathers the output."""
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(in_dim, out_dim))
         self.bias = nn.Parameter(torch.empty(out_dim))
+        self.tp = None
         bound = 1.0 / math.sqrt(in_dim)
         nn.init.uniform_(self.kernel, -bound, bound)
         nn.init.uniform_(self.bias, -bound, bound)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return tp_linear(x, self.kernel, self.bias, self.tp)
         return torch.matmul(x, self.kernel) + self.bias
 
 
@@ -103,34 +112,64 @@ class ResidualBlock(nn.Module):
         return h + x
 
 
+class AttentionBlock(nn.Module):
+    """Single-token self-attention. The sequence has length 1, so the
+    softmax over it is 1 and q and k are dead: the block is ``output(v) +
+    x``. Its LayerNorm ``norm`` is built and never applied, as in the
+    reference, so checkpoints of attention nets carry over 1:1."""
+
+    def __init__(self, in_dim: int, n_heads: int = 1):
+        super().__init__()
+        self.n_heads = n_heads
+        self.norm = LayerNorm(in_dim)
+        self.projection = Dense(in_dim, n_heads * in_dim * 3)
+        self.output = Dense(n_heads * in_dim, in_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d_k = self.output.kernel.shape[1]
+        qkv = self.projection(x).reshape(x.shape[0], self.n_heads, 3 * d_k)
+        v = qkv[..., 2 * d_k:]
+        return self.output(v.reshape(x.shape[0], -1)) + x
+
+
 class DownBlock(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int, time_dim: int, cond_dim: int):
+    def __init__(self, in_dim: int, out_dim: int, time_dim: int, cond_dim: int,
+                 has_attn: bool = False):
         super().__init__()
         self.res = ResidualBlock(in_dim, out_dim, time_dim, cond_dim)
+        self.attn = AttentionBlock(out_dim) if has_attn else None
 
     def forward(self, x, t, cond):
-        return self.res(x, t, cond)
+        x = self.res(x, t, cond)
+        return x if self.attn is None else self.attn(x)
 
 
 class UpBlock(nn.Module):
     """Input is ``in_dim + out_dim`` wide: the skip concat."""
 
-    def __init__(self, in_dim: int, out_dim: int, time_dim: int, cond_dim: int):
+    def __init__(self, in_dim: int, out_dim: int, time_dim: int, cond_dim: int,
+                 has_attn: bool = False):
         super().__init__()
         self.res = ResidualBlock(in_dim + out_dim, out_dim, time_dim, cond_dim)
+        self.attn = AttentionBlock(out_dim) if has_attn else None
 
     def forward(self, x, t, cond):
-        return self.res(x, t, cond)
+        x = self.res(x, t, cond)
+        return x if self.attn is None else self.attn(x)
 
 
 class MiddleBlock(nn.Module):
-    def __init__(self, dim: int, time_dim: int, cond_dim: int):
+    def __init__(self, dim: int, time_dim: int, cond_dim: int, has_attn: bool = False):
         super().__init__()
         self.res1 = ResidualBlock(dim, dim, time_dim, cond_dim)
+        self.attn = AttentionBlock(dim) if has_attn else None
         self.res2 = ResidualBlock(dim, dim, time_dim, cond_dim)
 
     def forward(self, x, t, cond):
-        return self.res2(self.res1(x, t, cond), t, cond)
+        x = self.res1(x, t, cond)
+        if self.attn is not None:
+            x = self.attn(x)
+        return self.res2(x, t, cond)
 
 
 class Resample(nn.Module):
@@ -165,7 +204,10 @@ class UNet1D(nn.Module):
     t (B,) or (1,) normalized time, cond (B, cond_dim), cond_mask (B, 1) with
     1.0 = keep the condition, 0.0 = drop it.
 
-    Attention blocks are in no shipped configuration and are not ported.
+    ``is_attn[i]`` puts an :class:`AttentionBlock` after every block of
+    level i, ``middle_attn`` one between the middle's two blocks. No shipped
+    configuration uses them; the ``plain`` backend runs them, and ``fused``
+    and ``mega`` raise on them, as the JAX package's kernels do.
     """
 
     def __init__(self, input_dim: int = 3, proj_dim: int = 16, cond_dim: int = 4,
@@ -173,9 +215,10 @@ class UNet1D(nn.Module):
                  is_attn: Sequence[bool] = (False, False, False),
                  middle_attn: bool = False, n_blocks: int = 2):
         super().__init__()
-        if any(is_attn) or middle_attn:
-            raise NotImplementedError(
-                "attention blocks are not ported (no shipped config uses them)")
+        # A shorter is_attn (the 3-level default on a deeper net) means no
+        # attention on the levels it does not name.
+        self.is_attn = tuple(bool(a) for a in is_attn) + (False,) * (len(dims) - len(is_attn))
+        self.middle_attn = bool(middle_attn)
         self.input_dim, self.proj_dim, self.cond_dim = input_dim, proj_dim, cond_dim
         self.dims, self.n_blocks = tuple(dims), n_blocks
         time_dim = proj_dim * 4
@@ -188,19 +231,21 @@ class UNet1D(nn.Module):
         level = 0
         for kind in self.down_kinds:
             if kind == "block":
-                m = DownBlock(widths[level], widths[level], time_dim, cond_dim)
+                m = DownBlock(widths[level], widths[level], time_dim, cond_dim,
+                              self.is_attn[min(level, len(self.dims) - 1)])
             else:
                 m = Resample(widths[level], widths[level + 1])
                 level += 1
             self.add_module(f"down_{len(self.down)}", m)
             self.down.append(m)
 
-        self.middle = MiddleBlock(widths[level], time_dim, cond_dim)
+        self.middle = MiddleBlock(widths[level], time_dim, cond_dim, self.middle_attn)
 
         self.up: List[nn.Module] = []
         for kind in self.up_kinds:
             if kind == "block":
-                m = UpBlock(widths[level], widths[level], time_dim, cond_dim)
+                m = UpBlock(widths[level], widths[level], time_dim, cond_dim,
+                            self.is_attn[max(level - 1, 0)])
             else:
                 m = Resample(widths[level], widths[level - 1])
                 level -= 1

@@ -12,7 +12,9 @@ Use ``unet_apply_fn(model, backend="fused")`` for the sampler's
 ``apply_fn(y, t, cond, cond_mask)``; ``backend="mega"`` runs the whole
 forward as one launch of the whole-network kernel (``ops/mega.py``), and
 ``backend="plain"`` the module's own forward (in bfloat16, the counterpart of
-the JAX package's ``xla_bf16`` backend).
+the JAX package's ``xla_bf16`` backend), and ``backend="pair"`` the
+shared-prefix CFG-pair forward (:func:`unet_forward_cfg_pair`, JAX's
+``xla_pair``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from .unet1d import UNet1D, swish
 from ..ops.mega import pack_params, unet_forward_mega
 from ..ops.resblock import fused_residual_block, resblock_params_tuple
+from ..parallel.mesh import sharded_names
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -32,7 +35,13 @@ ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], tor
 def unet_forward_fused(model: UNet1D, y: torch.Tensor, t: torch.Tensor,
                        cond: torch.Tensor, cond_mask: torch.Tensor) -> torch.Tensor:
     """Full UNet1D forward with fused residual blocks. float32 only, as the
-    JAX kernel (``pallas_kernels.py:67`` refuses bfloat16)."""
+    JAX kernel (``pallas_kernels.py:67`` refuses bfloat16). Raises on attention
+    nets, as ``unet1d_pallas.py:75-78`` does, and on tp-split weights."""
+    if any(model.is_attn) or model.middle_attn:
+        raise NotImplementedError("the fused backend fuses no attention blocks; use the "
+                                  "'plain' backend for attention nets (no shipped net has them)")
+    if sharded_names(model):
+        raise ValueError("the fused kernel takes whole weight matrices, not tp column slices")
     for name, a in (("y", y), ("t", t), ("cond", cond), ("cond_mask", cond_mask),
                     ("the weights", model.feature_proj.kernel)):
         if a.dtype != torch.float32:
@@ -62,15 +71,104 @@ def unet_forward_fused(model: UNet1D, y: torch.Tensor, t: torch.Tensor,
     return model.final(swish(model.norm(x)))
 
 
+def unet_forward_cfg_pair(model: UNet1D, y: torch.Tensor, t: torch.Tensor,
+                          cond: torch.Tensor) -> torch.Tensor:
+    """Both CFG halves in one forward, the shared prefix computed once.
+
+    Counterpart of ``diffsg_tpu/models/unet1d_pallas.py:123``
+    ``unet_forward_cfg_pair`` (JAX's ``xla_pair`` backend), in plain
+    PyTorch. The sampler's fold runs the net on 2B rows whose halves carry
+    the same ``y_t`` and differ only in ``cond * cond_mask`` (the
+    unconditional half sees 0). So the two halves agree up to the first
+    condition injection, inside the first down block: the feature
+    projection and that block's norm1, lin1, time add, norm2 and lin2 run
+    at B rows and fork there. And ``swish(0) = 0``, so every unconditional
+    condition projection is the ``cond_emb`` bias alone: a broadcast add,
+    and every condition product runs at B rows.
+
+    ``y`` and ``cond`` are the unfolded (B, ...) inputs; returns the (2B, D)
+    output laid out ``[uncond; cond]`` as the folded forward's. Raises on
+    attention nets, as JAX's does, and on tp-split weights.
+    """
+    if any(model.is_attn) or model.middle_attn:
+        raise NotImplementedError("cfg_pair does not implement attention")
+    if sharded_names(model):
+        raise ValueError("the pair forward takes whole weight matrices, not tp column slices")
+    st = swish(model.time_emb(t))          # (Bt, 4*proj), batch-constant time
+    sc = swish(cond)                       # (B, cond_dim), the conditional half only
+    B = y.shape[0]
+
+    def block_pair(res, x2: torch.Tensor) -> torch.Tensor:
+        """A residual block on the (2B,) pair state: the condition product
+        at B rows, the unconditional half gets the bias."""
+        h = res.lin1(swish(res.norm1(x2)))
+        h = h + res.time_emb(st)
+        h = res.lin2(swish(res.norm2(h)))
+        c_cond = torch.matmul(sc, res.cond_emb.kernel)
+        h = h + res.cond_emb.bias
+        h = torch.cat([h[:B], h[B:] + c_cond], dim=0)
+        h = res.lin3(swish(res.norm3(h)))
+        if res.shortcut is not None:
+            x2 = res.shortcut(x2)
+        return h + x2
+
+    x1 = model.feature_proj(y)             # (B, proj), shared
+    # The first down block: the shared prefix at B rows, forked at the
+    # condition injection.
+    res0 = model.down[0].res
+    h = res0.lin1(swish(res0.norm1(x1)))
+    h = h + res0.time_emb(st)
+    h = res0.lin2(swish(res0.norm2(h)))
+    h = h + res0.cond_emb.bias
+    h2 = torch.cat([h, h + torch.matmul(sc, res0.cond_emb.kernel)], dim=0)
+    h2 = res0.lin3(swish(res0.norm3(h2)))
+    x2_in = torch.cat([x1, x1], dim=0)
+    if res0.shortcut is not None:
+        x2_in = res0.shortcut(x2_in)
+    x = h2 + x2_in
+
+    h_stack = [torch.cat([x1, x1], dim=0), x]
+    for kind, m in zip(model.down_kinds[1:], model.down[1:]):
+        x = block_pair(m.res, x) if kind == "block" else m(x)
+        h_stack.append(x)
+
+    x = block_pair(model.middle.res1, x)
+    x = block_pair(model.middle.res2, x)
+
+    for kind, m in zip(model.up_kinds, model.up):
+        if kind == "resample":
+            x = m(x)
+        else:
+            x = block_pair(m.res, torch.cat([x, h_stack.pop()], dim=1))
+
+    return model.final(swish(model.norm(x)))
+
+
+def _check_fold(y2: torch.Tensor, cond_mask: torch.Tensor) -> int:
+    """B, for the sampler's fold: 2B rows, mask 0 on ``[0:B]`` and 1 on
+    ``[B:2B]`` (``diffusion.ddpm.cfg_net``). The mask is read outside a
+    CUDA-graph capture only (reading it synchronizes with the device)."""
+    if y2.shape[0] % 2:
+        raise ValueError(f"the pair backend takes the sampler's 2B-row CFG fold, got "
+                         f"{y2.shape[0]} rows")
+    B = y2.shape[0] // 2
+    capturing = y2.is_cuda and torch.cuda.is_current_stream_capturing()
+    if not capturing and not bool((cond_mask[:B] == 0).all() & (cond_mask[B:] == 1).all()):
+        raise ValueError("the pair backend takes the sampler's CFG fold, [uncond; cond] "
+                         "(mask 0 then 1); with skip_uncond use another backend")
+    return B
+
+
 def unet_apply_fn(model: UNet1D, backend: str = "fused",
                   compute_dtype: Optional[torch.dtype] = None) -> ApplyFn:
     """``apply_fn(y, t, cond, cond_mask)`` for the sampler.
 
     backend: "plain" (the module's own forward), "fused" (every residual
-    block through ``ops.resblock.fused_residual_block``, float32 only) or
+    block through ``ops.resblock.fused_residual_block``, float32 only),
     "mega" (the whole forward through ``ops.mega.unet_forward_mega``; its
     weights are packed once, here, in ``compute_dtype``, else in the model's
-    own type).
+    own type) or "pair" (:func:`unet_forward_cfg_pair`, plain PyTorch; only
+    for the sampler's folded 2B-row call, whose layout it checks).
 
     ``compute_dtype`` (``torch.bfloat16``) is taken by "mega", which then
     returns float32, and by "plain", which then runs a bfloat16 copy of the
@@ -104,4 +202,13 @@ def unet_apply_fn(model: UNet1D, backend: str = "fused",
             raise TypeError(f"the fused backend computes in float32 only, as the JAX kernel "
                             f"does; compute_dtype {compute_dtype} is taken by 'mega' and 'plain'")
         return lambda y, t, c, m: unet_forward_fused(model, y, t, c, m)
-    raise ValueError(f"unknown backend {backend!r}; use 'plain', 'fused' or 'mega'")
+    if backend == "pair":
+        if compute_dtype is not None:
+            raise TypeError(f"the pair backend computes in the model's type; compute_dtype "
+                            f"{compute_dtype} is taken by 'mega' and 'plain'")
+
+        def pair(y2, t, c2, m):
+            B = _check_fold(y2, m)
+            return unet_forward_cfg_pair(model, y2[:B], t, c2[B:])
+        return pair
+    raise ValueError(f"unknown backend {backend!r}; use 'plain', 'fused', 'mega' or 'pair'")

@@ -3,8 +3,8 @@
 Counterpart of ``diffsg_tpu/ops/decoders.py``. The MSR decoder and
 ``nu_decode`` normalize by the min and max of the **whole batch tensor**,
 not per row, as the published method does; ``valid_mask`` (B, 1) restricts
-those reductions to real rows. ``co_decode`` and ``nu_direct_decode`` are
-strictly per row.
+those reductions to real rows, and under an active mesh they reduce over
+dp. ``co_decode`` and ``nu_direct_decode`` are strictly per row.
 
 Per-column constants (the area, ``y_shift``) are applied as Python numbers,
 one column at a time, so that no decoder copies data from the host: a
@@ -18,28 +18,38 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_reduce_min, current_mesh
+
 
 def _by_column(Y: torch.Tensor, fn, values: Sequence[float]) -> torch.Tensor:
     """``fn(Y[:, j], values[j])`` for every column j, as one (B, len) tensor."""
     return torch.cat([fn(Y[:, j:j + 1], float(v)) for j, v in enumerate(values)], dim=1)
 
 
-def masked_min_max(Y: torch.Tensor, valid_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Global min and max over the rows where ``valid_mask`` > 0."""
-    big = torch.finfo(Y.dtype).max
-    keep = valid_mask > 0
-    mn = torch.where(keep, Y, torch.full_like(Y, big)).min()
-    mx = torch.where(keep, Y, torch.full_like(Y, -big)).max()
+def masked_min_max(Y: torch.Tensor, valid_mask: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global min and max over the rows where ``valid_mask`` > 0 (None:
+    every row). Under an active mesh (``parallel.mesh``) ``Y`` is the rank's
+    shard, and the min and the max are taken over dp (one MIN all-reduce of
+    ``(min, -max)``)."""
+    if valid_mask is None:
+        mn, mx = Y.min(), Y.max()
+    else:
+        big = torch.finfo(Y.dtype).max
+        keep = valid_mask > 0
+        mn = torch.where(keep, Y, torch.full_like(Y, big)).min()
+        mx = torch.where(keep, Y, torch.full_like(Y, -big)).max()
+    mesh = current_mesh()
+    if mesh is not None:
+        mn, neg_mx = all_reduce_min(torch.stack([mn, -mx]), mesh).unbind()
+        mx = -neg_mx
     return mn, mx
 
 
 def msr_decode(Y: torch.Tensor, valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batch-global min-max, then a per-row softmax. Powers are
     ``W * msr_decode(Y)`` (applied by the task)."""
-    if valid_mask is None:
-        mn, mx = Y.min(), Y.max()
-    else:
-        mn, mx = masked_min_max(Y, valid_mask)
+    mn, mx = masked_min_max(Y, valid_mask)
     return torch.softmax((Y - mn) / (mx - mn), dim=1)
 
 
@@ -86,10 +96,7 @@ def nu_decode(Y: torch.Tensor, width: float, height: float, P_sum: float,
     """UAV coordinates: min-max over the whole (B, 2) coordinate slice,
     scaled to the area; powers: per-row softmax times ``P_sum``."""
     xy = Y[:, :2]
-    if valid_mask is None:
-        mn, mx = xy.min(), xy.max()
-    else:
-        mn, mx = masked_min_max(xy, valid_mask)
+    mn, mx = masked_min_max(xy, valid_mask)
     xy = _by_column((xy - mn) / (mx - mn), torch.mul, (width, height))
     P = torch.softmax(Y[:, 2:], dim=1) * P_sum
     return torch.cat([xy, P], dim=1)

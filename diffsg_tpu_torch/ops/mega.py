@@ -44,6 +44,7 @@ from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import sharded_names
 from . import _build
 from .resblock import FORWARD_ONLY
 
@@ -151,6 +152,11 @@ def mega_grid(packed: MegaParams, rows: int, tile_rows: int, sms: int) -> int:
 
 
 def _check_model(model: "UNet1D") -> None:
+    if any(model.is_attn) or model.middle_attn:
+        raise NotImplementedError("the mega kernel runs no attention blocks; use the 'plain' "
+                                  "backend for attention nets (no shipped net has them)")
+    if sharded_names(model):
+        raise ValueError("the mega kernel takes whole weight matrices, not tp column slices")
     widths = (model.proj_dim, *model.dims)
     if any(w % 4 for w in widths):
         raise ValueError(f"the mega kernel needs widths that are multiples of 4, got {widths}")

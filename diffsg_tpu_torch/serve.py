@@ -1,10 +1,11 @@
 """Serving API: a loaded checkpoint that turns conditions into solutions.
 
-Counterpart of ``diffsg_tpu/serve.py`` on one device: ``suggest_buckets``,
-and ``Solver`` with batch buckets and a validity mask, the CFG-DDPM and DDIM
+Counterpart of ``diffsg_tpu/serve.py``: ``suggest_buckets``, and
+``Solver`` with batch buckets and a validity mask, the CFG-DDPM and DDIM
 samplers, best-of-N with omega mixtures, projected-gradient refinement
-after the decode (``refine_iters``), ``warmup`` and ``solve_chunked``. Not
-ported: the device mesh (``mesh``).
+after the decode (``refine_iters``), ``warmup``, ``solve_chunked`` and the
+device mesh (``mesh``, ``parallel.mesh``: every rank of a ``(dp, tp)`` mesh
+serves its dp shard of each request and returns the whole answer).
 
 Where JAX compiles one program per bucket, the port captures one CUDA graph
 per bucket and configuration (``warmup``, or the first ``solve`` of a
@@ -37,6 +38,14 @@ Example:
     # condition into the shared one and decodes its own columns.
     co_face = Solver.from_checkpoint("ckpts/ddpm_multi", task="multi_co")
     Y = co_face.solve(X_features, omega=0.5)          # (B, 3), as co_ranked
+
+    # A mesh: one process per card, every rank calls solve with the same X.
+    from diffsg_tpu_torch.parallel import init_process, make_mesh
+    init_process(rank, world, "file:///path/to/store")
+    mesh = make_mesh(world)
+    meshed = Solver.from_checkpoint("ckpts/ddpm_msr_3c_T100", task="msr", mesh=mesh,
+                                    buckets=(8192,))
+    P = meshed.solve(X)                  # (B, 3) on every rank
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from .diffusion.ddpm import cfg_sample
 from .diffusion.schedule import Schedule
 from .models.unet1d_fused import unet_apply_fn
 from .ops import mega, resblock
+from .parallel.mesh import Mesh, all_gather_rows, shard_params
 from .tasks import TASKS
 from .tasks.base import Task, loaded_model, refine_solutions, select_best
 from .tasks.multi import merge_multi_config
@@ -138,17 +148,42 @@ class Solver:
     task's), inside the same program, so a bucket's graph captures it. It is
     strictly per row, so padding stays exact; the first solve raises
     ValueError for a task without a projection (CO).
+
+    ``mesh`` (a ``parallel.Mesh``; the sched on its device) spreads each
+    request over the dp ranks, as the JAX package's meshed Solver does:
+    every rank calls ``solve`` with the same conditions. The batch is padded
+    to the next dp multiple (a configured bucket must be one) with masked
+    rows, and a mask is always passed. Every rank draws the noise of the n
+    real rows from the seed, as an unmeshed Solver does, and keeps its own
+    rows; it samples and decodes its shard with the sampler's and decoders'
+    batch-global reductions as all-reduces over dp (inside the bucket's
+    graph on a card), and the decoded shards are gathered, so ``solve``
+    returns the whole (n, D) on every rank. The parameters are placed by
+    ``shard_params``: at ``tp > 1`` the wide kernels are split over tp,
+    which only the "plain" backend runs ("fused" and "mega" take whole
+    weight matrices and raise ValueError).
     """
 
     def __init__(self, task: Task, model: torch.nn.Module, sched: Schedule, config: Dict,
                  backend: str = "fused", buckets: Optional[Sequence[int]] = None,
                  graphs: bool = True, refine_iters: int = 0,
-                 refine_step: Optional[float] = None):
+                 refine_step: Optional[float] = None, mesh: Optional[Mesh] = None):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, not {type(mesh).__name__}")
         self.task = task
-        self.model = model
         self.sched = sched
         self.config = dict(config)
         self.device = sched.betas.device
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device != self.device:
+                raise ValueError(f"the schedule is on {self.device}, the mesh's device is "
+                                 f"{mesh.device}")
+            if mesh.tp > 1 and backend != "plain":
+                raise ValueError(f"tp={mesh.tp} splits the wide kernels over tp, which the "
+                                 f"{backend!r} backend does not run; use backend='plain'")
+            model = shard_params(model, mesh)
+        self.model = model
         self.buckets = sorted(int(b) for b in buckets) if buckets else None
         self.graphs = graphs
         self.refine_iters = int(refine_iters)
@@ -165,17 +200,18 @@ class Solver:
     def from_checkpoint(cls, ckpt_dir: str, task: str = "msr", device: DeviceLike = "cuda",
                         backend: str = "fused", dataset_config: Optional[Dict] = None,
                         buckets: Optional[Sequence[int]] = None, **kw) -> "Solver":
-        """Load a ``diffsg_tpu.npz.v1`` checkpoint onto ``device``; ``kw``
-        goes to the constructor (``graphs``, ``refine_iters``,
-        ``refine_step``). ``dataset_config`` updates the checkpoint's
-        recorded one.
+        """Load a ``diffsg_tpu.npz.v1`` checkpoint onto ``device`` (the
+        mesh's device with a ``mesh``); ``kw`` goes to the constructor
+        (``graphs``, ``refine_iters``, ``refine_step``, ``mesh``).
+        ``dataset_config`` updates the checkpoint's recorded one.
 
         A multi-task face (``task="multi_<slot>"``) of a multi-task
         checkpoint starts from the checkpoint's ``subtask_configs[slot]``
         (``slot`` is the name after ``multi_``: ``nu_geo`` for
         ``multi_nu_geo``) and its shared architecture
         (``tasks.multi.merge_multi_config``)."""
-        dev = resolve_device(device)
+        mesh = kw.get("mesh")
+        dev = resolve_device(mesh.device if isinstance(mesh, Mesh) else device)
         ck = load_checkpoint(ckpt_dir, device=dev)
         md = ck["metadata"]
         config = dict(md.get("dataset_config") or {})
@@ -279,6 +315,15 @@ class Solver:
         X = np.asarray(X, np.float32)
         n = X.shape[0]
         b = self._bucket(n)
+        mesh, rows = self.mesh, None
+        if mesh is not None:
+            # Only configured buckets must be dp multiples; larger sizes pad
+            # up to the next one, as the JAX package's meshed Solver does.
+            if self.buckets and b in self.buckets and b % mesh.dp != 0:
+                raise ValueError(f"bucket {b} not divisible by dp={mesh.dp}; pick bucket "
+                                 f"sizes that are multiples of the dp mesh size")
+            b = -(-b // mesh.dp) * mesh.dp
+            rows = mesh.rows(b)
         spec = _Spec(b, sampler, (n_steps or self.sched.T) if sampler == "ddim" else None,
                      omegas.size, bool(np.all(omegas == 0.0)), float(eta), renorm_steps,
                      self.refine_iters, self.refine_step)
@@ -287,23 +332,26 @@ class Solver:
         host = {"cond": Xp,
                 "cond_unnorm": np.asarray(self.task.unnormalize_x(Xp, self.config), np.float32),
                 "valid": ((np.arange(b) < n).astype(np.float32)[:, None]
-                          if self.buckets else None),
+                          if self.buckets or mesh is not None else None),
                 "omega": omegas}
+        if rows is not None:
+            for name in ("cond", "cond_unnorm", "valid"):
+                host[name] = host[name][rows]
         gen = torch.Generator(device=self.device).manual_seed(seed)
         if self.graphs and self.device.type == "cuda" and b in (self.buckets or ()):
             g = self._graphs.get(spec)
             if g is None:
-                g = self._graphs[spec] = self._capture(spec, host, gen, n)
+                g = self._graphs[spec] = self._capture(spec, host, gen, n, rows)
             else:
-                self._fill(g.inputs, host, gen, n)
+                self._fill(g.inputs, host, gen, n, rows)
             g.graph.replay()
             resblock.LAUNCHES += g.launches[0]
             mega.LAUNCHES += g.launches[1]
             # A copy, so the next replay cannot overwrite a pending result.
             return g.out[:n].clone()
         inputs = self._alloc(spec, host["valid"] is not None)
-        self._fill(inputs, host, gen, n)
-        return self._program(spec, inputs)[:n]
+        self._fill(inputs, host, gen, n, rows)
+        return self._run(spec, inputs)[:n]
 
     # -- the program and its inputs -----------------------------------------------
 
@@ -313,7 +361,7 @@ class Solver:
         return 1 + (len(respaced_steps(self.sched.T, spec.n_steps)) if spec.eta > 0 else 0)
 
     def _alloc(self, spec: _Spec, masked: bool) -> _Inputs:
-        b, dev = spec.bucket, self.device
+        b, dev = spec.bucket // (self.mesh.dp if self.mesh else 1), self.device
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -322,9 +370,13 @@ class Solver:
                        zeros(spec.candidates, b, self._columns(spec), self._D),
                        zeros(spec.candidates))
 
-    def _fill(self, inputs: _Inputs, host: Dict, gen: torch.Generator, n: int) -> None:
+    def _fill(self, inputs: _Inputs, host: Dict, gen: torch.Generator, n: int,
+              rows: Optional[slice] = None) -> None:
         """Copy a request into ``inputs`` and draw its noise: candidate by
-        candidate, the n real rows from ``gen``; pad rows zero."""
+        candidate, the n real rows from ``gen``; pad rows zero. On a mesh
+        (``rows``, the rank's rows of the padded batch) each candidate's
+        noise of all n rows is drawn, as without one, and the rank keeps
+        its own rows."""
         for name in ("cond", "cond_unnorm", "valid", "omega"):
             dst = getattr(inputs, name)
             if dst is not None:
@@ -332,9 +384,23 @@ class Solver:
                 if dst.is_cuda:      # pinned, so the copy does not hold the host
                     src = src.pin_memory()
                 dst.copy_(src, non_blocking=dst.is_cuda)
-        inputs.noise[:, n:].zero_()
+        lo, hi = (0, n) if rows is None else (rows.start, max(rows.start, min(rows.stop, n)))
+        inputs.noise[:, hi - lo:].zero_()
         for k in range(inputs.noise.shape[0]):
-            inputs.noise[k, :n].normal_(generator=gen)
+            if rows is None:
+                inputs.noise[k, :n].normal_(generator=gen)
+            else:
+                full = torch.empty((n, *inputs.noise.shape[2:]), dtype=inputs.noise.dtype,
+                                   device=inputs.noise.device).normal_(generator=gen)
+                inputs.noise[k, :hi - lo].copy_(full[lo:hi])
+
+    def _run(self, spec: _Spec, inputs: _Inputs) -> torch.Tensor:
+        """The program, on a mesh with its reductions over dp and the
+        decoded shards gathered: (b, D) on every rank."""
+        if self.mesh is None:
+            return self._program(spec, inputs)
+        with self.mesh.active():
+            return all_gather_rows(self._program(spec, inputs), self.mesh)
 
     def _program(self, spec: _Spec, inputs: _Inputs) -> torch.Tensor:
         """Sample, decode, refine and (best-of) select: the work a graph
@@ -370,7 +436,8 @@ class Solver:
                           init_noise=init, step_noise=rest, valid_mask=inputs.valid,
                           parameterization=self._param, skip_uncond=spec.skip)
 
-    def _capture(self, spec: _Spec, host: Dict, gen: torch.Generator, n: int) -> _Graph:
+    def _capture(self, spec: _Spec, host: Dict, gen: torch.Generator, n: int,
+                 rows: Optional[slice] = None) -> _Graph:
         """Capture ``spec``'s program as a CUDA graph on inputs that hold
         this request. The program runs eagerly first, on a side stream
         (cuBLAS and the kernels' first-launch set-up happen outside the
@@ -378,21 +445,22 @@ class Solver:
         is warm too, as PyTorch's whole-network capture recipe does), and
         those launches count. Launches recorded during the
         capture do not run, so the wrappers keep them out of ``LAUNCHES``;
-        their number is added per replay instead."""
+        their number is added per replay instead. On a mesh the graph
+        captures the program's collectives too."""
         inputs = self._alloc(spec, masked=True)
-        self._fill(inputs, host, gen, n)
+        self._fill(inputs, host, gen, n, rows)
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(3 if spec.refine_iters > 0 else 1):
-                self._program(spec, inputs)
+                self._run(spec, inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = (resblock.CAPTURED, mega.CAPTURED)
         try:
             with torch.cuda.graph(graph):
-                out = self._program(spec, inputs)
+                out = self._run(spec, inputs)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture failed for {spec}: {e}") from e
         return _Graph(graph, inputs, out,

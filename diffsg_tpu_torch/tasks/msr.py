@@ -51,10 +51,7 @@ def _decode_temp_selected(Y_raw, X_unnorm, config, valid_mask=None):
     ``t * Y``) and keep each row's best rate; ties go to the lower
     temperature."""
     W = config["W"]
-    if valid_mask is None:
-        mn, mx = Y_raw.min(), Y_raw.max()
-    else:
-        mn, mx = masked_min_max(Y_raw, valid_mask)
+    mn, mx = masked_min_max(Y_raw, valid_mask)
     Yn = (Y_raw - mn) / (mx - mn)
     ps = torch.stack([W * torch.softmax(t * Yn, dim=1) for t in MSR_DECODE_TEMPS])
     rates = torch.stack([msr_sum_rate(p, X_unnorm) for p in ps])

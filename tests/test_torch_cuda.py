@@ -797,3 +797,119 @@ def test_cuda_ppo_step_matches_cpu():
         out[device] = (params, logs[0])
     assert _logged(out["cuda"][1]) == pytest.approx(_logged(out["cpu"][1]), abs=2e-4)
     _params_within(out["cpu"][0], out["cuda"][0], PPOConfig.lr)
+
+
+# -- the mesh, the legacy sampler, attention nets and the pair backend ------------------
+
+@pytest.mark.cuda
+def test_cuda_meshed_solver_one_rank_equals_unmeshed_bit_for_bit(tmp_path):
+    """A spawned world of one NCCL rank serves MSR-3c from the bucket's CUDA
+    graph with its collectives captured inside; at world 1 they add nothing,
+    so the answer equals the unmeshed bucketed Solver's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import pathlib
+
+    from diffsg_tpu_torch.parallel import cases, launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ckpt = str(pathlib.Path(__file__).resolve().parent.parent / "ckpts" / "ddpm_msr_3c_T100")
+    X = np.random.default_rng(0).uniform(0, 1, (1000, 3)).astype(np.float32)
+    meshed = launch.spawn(cases.run, 1, 1, "cuda", timeout_s=300, store_dir=str(tmp_path),
+                          args=([("solve", (ckpt, "msr", X, "fused", {"seed": 2}, (1024,)))],),
+                          threads=4)[0][0]
+    unmeshed = _serve_solver("ddpm_msr_3c_T100", "msr", "fused",
+                             buckets=(1024,)).solve(X, seed=2)
+    assert isinstance(meshed, np.ndarray), meshed
+    np.testing.assert_array_equal(meshed, unmeshed)
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_multichip_one_rank():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diffsg_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    r = dryrun_multichip(1, device="cuda", timeout_s=300)
+    assert r["shape"] == {"dp": 1, "tp": 1} and r["platform"] == "cuda"
+    assert np.isfinite(r["loss"]) and r["serve_max_abs_err"] < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_legacy_sample_matches_cpu():
+    """legacy_sample on the card against the CPU on the same injected
+    Dirichlet draws (MSR clamp, a small net as the denoiser)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diffsg_tpu_torch.diffusion import cosine_schedule
+    from diffsg_tpu_torch.diffusion.legacy import legacy_sample
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, T = 256, 10
+    rng = np.random.default_rng(4)
+    cond = rng.uniform(0, 1, (B, 3)).astype(np.float32)
+    init = torch.from_numpy(rng.dirichlet(np.ones(3), B).astype(np.float32))
+    steps = torch.from_numpy((rng.dirichlet(np.full(3, 3.0), (T, B)) - 1 / 3)
+                             .astype(np.float32))
+    torch.manual_seed(0)
+    net = UNet1D(input_dim=3, proj_dim=32, cond_dim=3, dims=(16, 8), n_blocks=1,
+                 is_attn=(False, False))
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = net.to(device)
+        ones = torch.ones(B, 1, device=device)
+        with torch.no_grad():
+            out[device] = legacy_sample(lambda y, t, c: model(y, t / T, c, ones),
+                                        cosine_schedule(T, device=device),
+                                        torch.from_numpy(cond).to(device), 3,
+                                        task="MAX SUM RATE", init=init,
+                                        step_noise=steps)[0].cpu()
+    # Each step's whole-tensor min-max rescales the two devices' rounding
+    # differences; chip_smoke.py's legacy phase holds its run to the same.
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_net_plain_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(1)
+    net = UNet1D(input_dim=3, proj_dim=64, cond_dim=3, dims=(32, 16), n_blocks=2,
+                 is_attn=(True, True), middle_attn=True)
+    rng = np.random.default_rng(5)
+    args = [torch.from_numpy(a) for a in (rng.normal(size=(512, 3)).astype(np.float32),
+                                          np.full(1, 0.4, np.float32),
+                                          rng.uniform(0, 1, (512, 3)).astype(np.float32),
+                                          np.ones((512, 1), np.float32))]
+    with torch.no_grad():
+        want = net(*args)
+        got = net.cuda()(*[a.cuda() for a in args]).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_pair_backend_matches_plain():
+    """The CFG-pair forward on MSR-3c at 4,096 folded rows against plain,
+    and a request through it against plain at omega 0.125 on NU DDIM-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diffsg_tpu_torch.models import unet_apply_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _serve_solver("ddpm_msr_3c_T100", "msr", "plain").model
+    rng = np.random.default_rng(6)
+    half = torch.from_numpy(rng.normal(size=(2048, 3)).astype(np.float32)).cuda()
+    c = torch.from_numpy(rng.uniform(0, 1, (2048, 3)).astype(np.float32)).cuda()
+    y2, c2 = torch.cat([half, half]), torch.cat([c, c])
+    mask = torch.cat([torch.zeros(2048, 1), torch.ones(2048, 1)]).cuda()
+    t = torch.full((1,), 0.37, device="cuda")
+    with torch.no_grad():
+        ref = model(y2, t, c2, mask)
+        got = unet_apply_fn(model, "pair")(y2, t, c2, mask)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    X = rng.uniform(0.05, 0.95, (512, 6)).astype(np.float32)
+    kw = {"omega": 0.125, "sampler": "ddim", "n_steps": 3}
+    out = {b: _serve_solver("ddpm_nu_3u_aug32_s8c", "nu_direct", b,
+                            buckets=(512,)).solve(X, **kw) for b in ("plain", "pair")}
+    np.testing.assert_allclose(out["pair"], out["plain"], rtol=1e-5, atol=1e-4)

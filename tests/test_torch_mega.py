@@ -335,10 +335,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
             unet_forward_mega(model, *[a.to("meta") for a in (y, t, c, m)])
     with pytest.raises(TypeError, match="float32 only"):
         unet_apply_fn(model, "fused", compute_dtype=torch.bfloat16)
-    # Attention configs cannot be built, so no net with attention reaches
-    # the kernel.
+    # Attention nets build (the plain backend runs them), and the kernel
+    # refuses them, as the JAX kernel does (pallas_mega.py:151).
     with pytest.raises(NotImplementedError):
-        UNet1D(is_attn=(False, False, False), middle_attn=True)
+        pack_params(UNet1D(is_attn=(False, False, False), middle_attn=True))
 
 
 def test_cpu_wrapper_is_the_reference_and_does_not_count():

@@ -54,9 +54,11 @@ def test_plain_and_fused_backends_agree(solver):
 
 @pytest.mark.parametrize("option", ["mesh"])
 def test_unported_solve_options_raise(solver, option):
+    """As in the JAX package: ``solve`` takes no mesh (a Solver is meshed at
+    construction), and the constructor's mesh must be a ``parallel.Mesh``."""
     with pytest.raises(TypeError, match=option):
         solver.solve(_conditions(4), **{option: 2})
-    with pytest.raises(TypeError, match=option):
+    with pytest.raises(TypeError, match=f"{option} must be a parallel.Mesh"):
         Solver(solver.task, solver.model, solver.sched, solver.config, **{option: 2})
 
 

@@ -88,7 +88,12 @@ def test_nu_shaped_random_net_matches_flax():
 
 
 def test_attention_configs_are_rejected():
-    with pytest.raises(NotImplementedError):
-        UNet1D(is_attn=(True, False, False))
+    """By the kernels, as the JAX package's Pallas backends reject them
+    (the plain forward runs them: tests/test_torch_legacy.py)."""
+    model = UNet1D(is_attn=(True, False, False))
+    args = (torch.ones(4, 3), torch.full((1,), 0.5), torch.ones(4, 4), torch.ones(4, 1))
+    for backend in ("fused", "mega"):
+        with pytest.raises(NotImplementedError), torch.no_grad():
+            unet_apply_fn(model, backend)(*args)
     with pytest.raises(ValueError, match="unknown backend"):
         unet_apply_fn(unet_msr(3), "pallas")
