@@ -43,9 +43,18 @@ their answers:
   ``fused`` and ``mega`` in turns, float32, with their forward times
   (``serve_multi_80``);
 * ``tasks.base.evaluate`` on the repository's data (``eval``): the CSVs of
-  ``datasets/`` remade where missing (a checkout has none), then the CO
-  split (15,000 rows) and the three geometry splits, each metric held to
-  the JAX package's ``evaluate`` (``EVAL_JAX``);
+  ``datasets/`` remade where missing (a checkout has none), then a best-of-4
+  on the 200x200 geometry split held to the JAX package's ``evaluate``
+  (``EVAL_JAX``);
+* the quality CLIs (``headline``): the port's ``tools/headline.py`` on the
+  multi-task rows (whole splits) and on the MSR, CO, NU and hybrid rows
+  that the repository's files reproduce (the first 1,024 test rows), each
+  row held to the JAX package's ``evaluate`` on the same rows
+  (``HEADLINE_JAX``, and ``EVAL_JAX`` / ``EVAL_ZOO_JAX`` for the rows they
+  hold); ``tools/eval_nu_geo.py`` on ``ckpts/ddpm_nu_geo``; and
+  ``tools/co_guided.py`` on ``ckpts/ddpm_co_aux`` (``CO_GUIDED_JAX``: at
+  omega 5,000 unguided and at scale 0.3, and at omega 0 unguided and at
+  scale 3, the guided row apart from the unguided one);
 * training (``train``): ``train.train_ddpm`` on the card for the CO net
   (the training split of that CO CSV) and MSR-3c (a 10,000-row, 10 W set
   from ``sum_rate_gen``), 2 epochs each at batch 512 from the reference
@@ -68,9 +77,7 @@ their answers:
   faces at their tasks' batches on ``fused``, MSR-80c on ``mega`` too,
   eagerly and from their buckets' graphs, and MSR-80c on ``plain``,
   ``fused`` and ``mega`` in turns from the graphs, held to the JAX
-  package's mean quality, the forward on the three in turns; and
-  ``evaluate`` on its MSR-80c, MSR-8c and CO rows of ``tools/headline.py``
-  (``eval_zoo``), held to ``EVAL_ZOO_JAX``;
+  package's mean quality, the forward on the three in turns;
 * the baselines (``baselines``): GD on each task at 65,536 rows on the card,
   equal to the CPU's on the same rows and feasible row by row; the five
   shipped ``ckpts/retrain_*`` checkpoints' metrics on the test splits held
@@ -91,7 +98,18 @@ their answers:
   against CPU, and the CFG-pair backend (``pair``): its MSR-3c forward held
   to ``plain`` and timed beside ``plain`` and ``fused``, and one ``msr_temp``
   request served through it, eagerly and from its graph, held to
-  ``JAX_QUALITY``.
+  ``JAX_QUALITY``;
+* the timing CLIs (``timing``): ``tools/profile_sampler.py``'s
+  ``torch.profiler`` trace of one MSR-3c sampler call on ``fused`` and on
+  ``mega`` (the trace counts 2,700 residual-block and 100 mega launches; the
+  top device operations are reported), ``tools/serving_latency.py``'s table
+  on NU through a ``mega`` Solver (pipelined requests equal blocking ones
+  bit for bit) and ``tools/latency_probe.py`` on MSR-3c;
+* the research CLIs (``research``): ``tools/dump_trajectory.py`` on CO,
+  ``tools/refine_labels.py`` with a model seed on a small nu-budget set,
+  ``tools/refine_study.py`` and ``tools/nu12_to_geo15.py`` on the 18 mW NU
+  set, each held to its contract (the last, byte for byte, to the JAX
+  CLI's output).
 
 The residual-block kernel is held to its plain version at every block
 shape of the MSR-3c forward (16,384 rows) and of the CO forward (65,536
@@ -331,11 +349,17 @@ EVAL_JAX = {
 }
 
 
-# -- eval_zoo: the zoo's rows of tools/headline.py:432-438 that the repository's
-# files reproduce (MSR-80c at 20 W, MSR-8c at 10 W, CO), as EVAL_SPECS. Their
-# constants: the mean of JAX seeds 0 and 1 and 4 standard errors, as
-# multi_co's; computed by tests/test_torch_zoo.py::test_zoo_evaluate_vs_jax_constants
-# (marked slow: two JAX evaluates of the proj-256 net over CO's 15,000 rows).
+# The eval phase's own row (the others are headline rows, run by the headline
+# phase through tools/headline.py).
+EVAL_ONLY = ("multi_nu_geo_200x200_best_of_4",)
+
+
+# -- the zoo's rows of tools/headline.py:432-438 that the repository's files
+# reproduce (MSR-80c at 20 W, MSR-8c at 10 W, CO), as EVAL_SPECS; the headline
+# phase holds them. Their constants: the mean of JAX seeds 0 and 1 and 4
+# standard errors, as multi_co's; computed by
+# tests/test_torch_zoo.py::test_zoo_evaluate_vs_jax_constants (marked slow: two
+# JAX evaluates of the proj-256 net over CO's 15,000 rows).
 EVAL_ZOO_SPECS = {
     "zoo_msr80": dict(ckpt="ddpm_multi_zoo", task="multi_msr80",
                       csv="80c_20w_wf_10000samples.csv", omega=0.5, seeds=2),
@@ -354,6 +378,201 @@ EVAL_ZOO_JAX = {
                "decision_accuracy": (0.9550333333333336, 0.006114463726825654),
                "terrible_count": (0.0, 1.0)},
 }
+
+# -- headline: the port's tools/headline.py, its rows that the repository's files ----
+# reproduce. Two runs: the multi-task rows on whole splits, and the MSR, CO, NU
+# and hybrid rows on the first HEADLINE_LIMIT test rows (the geometry splits
+# have 150-300 rows, so they stay whole). Each row is held to the JAX
+# package's evaluate on the same rows: the rows EVAL_JAX and EVAL_ZOO_JAX
+# already hold keep those constants (HEADLINE_EVAL), the others take
+# HEADLINE_JAX, built as EVAL_JAX is from HEADLINE_SEEDS[row] JAX draws: 2 on
+# splits of 1,000 rows or more, 8 on the 600-row OOD MSR splits, 64 on the
+# geometry splits, and 16 on the best-of rows, where most rows converge to
+# one answer whatever the seed and a rare row fails badly (14 of 16 JAX draws
+# of "co x0 ranked bo8 mix" give the same ratio to the last bit, one is
+# 1.8e-4 above it), so two draws understate the spread 10x. avg_diff's floor
+# is 1e-6 of the labels' mean objective, the ratio's floor in its units:
+# after 50 refinement steps float32 rounding of the objectives is all that
+# parts two draws. Computed and held by
+# tests/test_torch_quality_clis.py::test_headline_vs_jax_constants (slow).
+HEADLINE_LIMIT = 1024
+HEADLINE_ARGV = (["--tasks", "multi"],
+                 ["--tasks", "msr", "co", "nu", "hybrid", "--limit", str(HEADLINE_LIMIT)])
+HEADLINE_EVAL = {
+    "multi co ranked single-draw": "multi_co",
+    "multi_geo nu 480x360 21mW": "multi_nu_geo_480x360",
+    "multi_geo nu 600x600 33mW": "multi_nu_geo_600x600",
+    "multi_geo nu 200x200 12mW": "multi_nu_geo_200x200",
+    "multi_zoo msr_80c 20w (unseen)": "zoo_msr80",
+    "multi_zoo msr_8c 10w (unseen)": "zoo_msr8",
+    "multi_zoo co ranked single-draw": "zoo_co",
+}
+HEADLINE_SEEDS = {
+    "multi_geo co ranked single-draw": 2,
+    "multi_80 msr_80c 20w (unseen)": 2,
+    "multi_80 msr_80c OOD 40w (unseen)": 8,
+    "multi_80 msr_8c 10w (unseen)": 2,
+    "multi_80 msr_8c OOD 20w (unseen)": 8,
+    "multi_80 co ranked single-draw": 2,
+    "msr_8c wf single-draw": 2,
+    "msr_8c wf OOD 20w single-draw": 8,
+    "co x0 ranked single-draw": 2,
+    "co x0 ranked bo8 mix": 16,
+    "co ranked single-draw": 2,
+    "co ranked bo8 mix": 16,
+    "co analytic bo32": 16,
+    "nu geo universal self-improved (600x600 33mW)": 64,
+    "nu geo universal self-improved (200x200 12mW)": 64,
+    "nu geo universal self-improved (480x360 21mW)": 64,
+    "nu geo universal (600x600 33mW)": 64,
+    "nu geo universal (200x200 12mW)": 64,
+    "nu geo universal x0f (480x360 21mW)": 64,
+    "nu geo universal x0f (600x600 33mW)": 64,
+    "nu geo universal x0f (200x200 12mW)": 64,
+    "hybrid msr_80c wf50k +refine50": 2,
+    "hybrid msr_80c OOD 40w +refine50": 8,
+}
+HEADLINE_JAX = {
+    "multi_geo co ranked single-draw":
+        {"exceeded_ratio": (1.0009961128234863, 0.0002949874307562435),
+         "avg_diff": (0.001894175074994564, 0.0005609679698845038),
+         "decision_accuracy": (0.9651000000000003, 0.006470445631227162),
+         "terrible_count": (0.0, 1.0)},
+    "multi_80 msr_80c 20w (unseen)":
+        {"less_ratio": (0.9996020197868347, 2.8494802752437004e-06),
+         "avg_diff": (-0.016175100579857826, 0.00011580909082324812)},
+    "multi_80 msr_80c OOD 40w (unseen)":
+        {"less_ratio": (0.9998619556427002, 1.259023590370714e-06),
+         "avg_diff": (-0.009237931109964848, 8.425850862208221e-05)},
+    "multi_80 msr_8c 10w (unseen)":
+        {"less_ratio": (0.9999934434890747, 9.999934434890747e-07),
+         "avg_diff": (-7.879240729380399e-05, 1.1938036918640137e-05)},
+    "multi_80 msr_8c OOD 20w (unseen)":
+        {"less_ratio": (0.9999986886978149, 9.999986886978148e-07),
+         "avg_diff": (-2.1896759790251963e-05, 1.7362220764160154e-05)},
+    "multi_80 co ranked single-draw":
+        {"exceeded_ratio": (1.0008044242858887, 0.0001761990879212929),
+         "avg_diff": (0.0015297982608899474, 0.0003350720743899087),
+         "decision_accuracy": (0.967766666666667, 0.004871686908385363),
+         "terrible_count": (0.0, 1.0)},
+    "msr_8c wf single-draw":
+        {"less_ratio": (0.999923825263977, 1.6638345696771392e-05),
+         "avg_diff": (-0.0009088926017284393, 0.00019831577478129616)},
+    "msr_8c wf OOD 20w single-draw":
+        {"less_ratio": (0.9999802112579346, 4.386995529731579e-06),
+         "avg_diff": (-0.0003433068632148206, 7.616798836609485e-05)},
+    "co x0 ranked single-draw":
+        {"exceeded_ratio": (1.0017542839050293, 0.0013418230186514504),
+         "avg_diff": (0.003278113901615143, 0.002507406617327646),
+         "decision_accuracy": (0.943359375, 0.030257682392245442),
+         "terrible_count": (0.0, 1.0)},
+    "co x0 ranked bo8 mix":
+        {"exceeded_ratio": (1.0000042915344238, 0.00019726854181374164),
+         "avg_diff": (8.040449756663293e-06, 0.00036862725938813343),
+         "decision_accuracy": (0.99884033203125, 0.0017435127999372191),
+         "terrible_count": (0.0, 1.0)},
+    "co ranked single-draw":
+        {"exceeded_ratio": (1.0023524761199951, 0.0042669018994623215),
+         "avg_diff": (0.004395965952426195, 0.007973373387772618),
+         "decision_accuracy": (0.962890625, 0.010697706201272776),
+         "terrible_count": (0.0, 1.0)},
+    "co ranked bo8 mix":
+        {"exceeded_ratio": (1.0003498792648315, 0.00029493647498097706),
+         "avg_diff": (0.000653728493489325, 0.0005511350816650779),
+         "decision_accuracy": (0.982666015625, 0.005364431237098542),
+         "terrible_count": (0.0, 1.0)},
+    "co analytic bo32":
+        {"exceeded_ratio": (1.0025320053100586, 0.002577343432264315),
+         "avg_diff": (0.004731310997158289, 0.004816169635223633),
+         "decision_accuracy": (0.9573974609375, 0.01663408273194928),
+         "terrible_count": (0.0, 1.0)},
+    "nu geo universal self-improved (600x600 33mW)":
+        {"less_ratio": (2.0022459030151367, 0.023231763126807893),
+         "avg_diff": (0.0005746558890677989, 1.3320348696376633e-05)},
+    "nu geo universal self-improved (200x200 12mW)":
+        {"less_ratio": (1.2252519130706787, 0.00600900413359551),
+         "avg_diff": (7.691218343097717e-05, 2.0517731738003496e-06)},
+    "nu geo universal self-improved (480x360 21mW)":
+        {"less_ratio": (1.6756068468093872, 0.013859441019809944),
+         "avg_diff": (0.0002941964194178581, 6.035163041939804e-06)},
+    "nu geo universal (600x600 33mW)":
+        {"less_ratio": (0.9858058094978333, 0.028413557361117517),
+         "avg_diff": (-8.138476914609782e-06, 1.629142332421616e-05)},
+    "nu geo universal (200x200 12mW)":
+        {"less_ratio": (0.9983683824539185, 0.005535526844004752),
+         "avg_diff": (-5.571113206315204e-07, 1.8901042052423791e-06)},
+    "nu geo universal x0f (480x360 21mW)":
+        {"less_ratio": (1.0001375675201416, 0.00015284528373403036),
+         "avg_diff": (5.98691656250594e-08, 6.655720492838616e-08)},
+    "nu geo universal x0f (600x600 33mW)":
+        {"less_ratio": (0.9979137778282166, 0.0011956432187450912),
+         "avg_diff": (-1.1961576547037112e-06, 6.855434212677051e-07)},
+    "nu geo universal x0f (200x200 12mW)":
+        {"less_ratio": (1.0000579357147217, 7.358845277237542e-05),
+         "avg_diff": (1.977872443603701e-08, 2.5126690002346342e-08)},
+    "hybrid msr_80c wf50k +refine50":
+        {"less_ratio": (1.000000238418579, 1.000000238418579e-06),
+         "avg_diff": (6.77257776260376e-06, 4.063783264160156e-05)},
+    "hybrid msr_80c OOD 40w +refine50":
+        {"less_ratio": (1.000000238418579, 1.000000238418579e-06),
+         "avg_diff": (9.636084541853052e-06, 6.692412567138672e-05)},
+}
+# eval_nu_geo on ckpts/ddpm_nu_geo at omegas 0.06 and 0.25: the (config,
+# omega) pairs that are headline rows, held to those rows' constants.
+EVAL_NU_GEO_ARGV = ["--ckpt", "ckpts/ddpm_nu_geo", "--omegas", "0.06", "0.25"]
+EVAL_NU_GEO_ROWS = {("12mW 200x200", 0.06): "nu geo universal (200x200 12mW)",
+                    ("33mW 600x600", 0.25): "nu geo universal (600x600 33mW)"}
+# co_guided on ckpts/ddpm_co_aux (tau 0.05), in two runs: at omega 5,000 on the
+# first 1,024 CO test rows at guidance scales 0 and 0.3, and at omega 0 on the
+# whole test split (15,000 rows) at scales 0 and 3. At omega 5,000 the tilt
+# moves no decision (the two constants are equal); at omega 0 scale 3 moves
+# the means of exceeded_ratio and avg_diff 2.9 times both rows' tolerances
+# together off the unguided row's, so the card run shows the guidance
+# gradient changing the answers.
+# Per (omega, scale), the JAX package's guided sampler (its co_guided.py's
+# program) over CO_GUIDED_SEEDS seeds, as HEADLINE_JAX; computed and held by
+# tests/test_torch_quality_clis.py::test_co_guided_vs_jax_constants (slow).
+_CO_GUIDED_DATA = ["--ckpt", "ckpts/ddpm_co_aux", "--dataset",
+                   "datasets/3nodes_50000samples_new.csv"]
+CO_GUIDED_RUNS = [_CO_GUIDED_DATA + ["--limit", "1024", "--scales", "0", "0.3"],
+                  _CO_GUIDED_DATA + ["--omegas", "0", "--scales", "0", "3"]]
+CO_GUIDED_SEEDS = 2
+CO_GUIDED_JAX = {
+    (5000.0, 0.0): {"acc": (0.78955078125, 0.0033829117335329633),
+                    "exceeded_ratio": (1.0254096984863281, 0.00035771772959352363),
+                    "avg_diff": (0.04748209938406944, 0.0006684513787907259)},
+    (5000.0, 0.3): {"acc": (0.78955078125, 0.0033829117335329633),
+                    "exceeded_ratio": (1.0254096984863281, 0.00035771772959352363),
+                    "avg_diff": (0.04748209938406944, 0.0006684513787907259)},
+    (0.0, 0.0): {"acc": (0.0027, 0.0015491933384829668),
+                 "exceeded_ratio": (2.3157191276550293, 0.005850635116342607),
+                 "avg_diff": (2.5020599365234375, 0.011125961410591799)},
+    (0.0, 3.0): {"acc": (0.01596666666666667, 0.004849742261192856),
+                 "exceeded_ratio": (2.2418875694274902, 0.019663350787927532),
+                 "avg_diff": (2.36165714263916, 0.037393149188965434)},
+}
+
+# -- timing: the port's profile_sampler, serving_latency and latency_probe -----------
+# profile_sampler on MSR-3c shapes: one profiled sampler call sees every launch.
+PROFILE_SPEC = dict(task="msr", T=100, batch=SERVE_B, omega=500.0)
+PROFILE_KERNELS = {"fused": ("resblock_", 27 * 100), "mega": ("mega_kernel", 100)}
+SERVING_SIZES = [1, 512, 32768]
+SERVING_ARGS = dict(samplers=["ddim:3"], repeats=10, depth=8)
+# latency_probe's plain single-sample draw is host-paced (1.33 s for 100
+# eager steps on the H100): 5 repeats, not its default 20.
+LATENCY_REPEATS = 5
+
+# -- research: dump_trajectory, refine_labels, refine_study and nu12_to_geo15 --------
+# A small nu-budget set (make_datasets nu-budget at grid step 8) beside
+# BASELINE_DATA's 18 mW NU set, which refine_study and nu12_to_geo15 read.
+RESEARCH_BUDGET_CSV = ("build", "datasets", "3u_budget9-36_300samples.csv")
+RESEARCH_BUDGET_ROWS = ("nu-budget", {"samples": 300, "grid_step": 8.0})
+# SHA-256 of the JAX package's tools/nu12_to_geo15.py output on BASELINE_DATA's
+# NU set (--power 18 --width 400 --height 400), its pandas reader parsing
+# correctly rounded (float_precision="round_trip"; pandas' default parser puts
+# some values 1 ulp off); computed by
+# tests/test_torch_research_clis.py::test_chip_smoke_nu12_to_geo15_constant.
+NU12_TO_GEO15_SHA256 = "f2ac3aab77d9eb2f18a7c5d0bde7e5308dfeb2b96f58c41498ddaddd9b7619d0"
 
 # -- datasets_gen: tools/make_datasets.py's subcommands at small sizes --------------
 # Each file's arguments (the port's make_datasets and the JAX package's take the
@@ -1324,15 +1543,6 @@ def run_report(argv, out):
     return [json.loads(line) for line in open(out)]
 
 
-def _forwards_and_blocks(task, ckpt, dev):
-    """(T, residual blocks a forward) of a checkpoint's net."""
-    from diffsg_tpu_torch.models.unet1d import ResidualBlock
-    from diffsg_tpu_torch.serve import Solver
-
-    solver = Solver.from_checkpoint(ckpt, task=task, device=dev, backend="plain")
-    return solver.sched.T, sum(isinstance(m, ResidualBlock) for m in solver.model.modules())
-
-
 def report_phase(dev):
     """The ``report`` phase: ``tools/report.py`` on CO, MSR-3c and NU, one
     DDPM row (fused) held to REPORT_JAX and the baseline rows with a
@@ -1363,7 +1573,7 @@ def report_phase(dev):
         rows = run_report(argv, os.path.join(out_root, f"report_{fam}.jsonl"))
         seconds = time.perf_counter() - t0
         n_test = int(rows[0]["n_samples"])
-        T, blocks = _forwards_and_blocks(spec["task"], ckpt, dev)
+        T, blocks = _steps_and_blocks(ckpt)
         steps = 3 if "--n-steps" in spec["argv"] else T
         want = -(-n_test // 512) * steps * blocks
         check(resblock.LAUNCHES == want and mega.LAUNCHES == 0,
@@ -1397,7 +1607,7 @@ def report_phase(dev):
         seconds = time.perf_counter() - t0
         rows = [json.loads(line) for line in printed.getvalue().splitlines()
                 if line.startswith("{")]
-        T, blocks = _forwards_and_blocks(rspec["task"], ckpt, dev)
+        T, blocks = _steps_and_blocks(ckpt)
         n_test = len(TASKS[rspec["task"]].load(paths[fam]).X_test)
         steps = [int(s) for s in spec["argv"][spec["argv"].index("--steps") + 1:]]
         want = -(-n_test // 512) * (T + sum(steps)) * (blocks if spec["backend"] == "fused" else 1)
@@ -1418,6 +1628,313 @@ def report_phase(dev):
                                     "launches": want,
                                     "rows": [{k: v for k, v in r.items()
                                               if k not in ("task", "dataset")} for r in rows]}
+    return fields, launches
+
+
+def _steps_and_blocks(ckpt):
+    """(T, residual blocks a forward) of the checkpoint ``ckpt`` (a path, or
+    a name under ``ckpts/``), from its arrays' names (each block has one
+    ``lin3``)."""
+    with np.load(os.path.join(REPO, "ckpts", ckpt, "arrays.npz")) as z:
+        return (int(z["schedule/betas"].shape[0]),
+                sum(k.startswith("params/") and k.endswith("/lin3/kernel") for k in z.files))
+
+
+def _within(what, got, constants):
+    """Hold each metric of ``got`` to its (mean, tolerance); returns each
+    metric's distance over its tolerance."""
+    for k, (mean, tol) in constants.items():
+        check(np.isfinite(got[k]) and abs(got[k] - mean) <= tol,
+              f"{what}: {k} {got[k]} vs the JAX package's {mean} (+-{tol})")
+    return {k: abs(got[k] - m) / t for k, (m, t) in constants.items()}
+
+
+def headline_constants(name):
+    """The JAX constants of headline row ``name``."""
+    if name in HEADLINE_EVAL:
+        return {**EVAL_JAX, **EVAL_ZOO_JAX}[HEADLINE_EVAL[name]]
+    return HEADLINE_JAX[name]
+
+
+def _counted(what, fn, fused=0, mega=0):
+    """Run ``fn()`` with its standard output swallowed, both launch counters
+    set to 0 just before it and read once the card has finished; check them
+    against ``fused`` residual-block and ``mega`` launches (each a number,
+    or a function of ``fn``'s result). Returns (result, seconds, counts),
+    the counts as the wrappers counted them."""
+    import contextlib
+    import io
+
+    import torch
+
+    from diffsg_tpu_torch.ops import mega as mega_op
+    from diffsg_tpu_torch.ops import resblock
+
+    resblock.LAUNCHES = mega_op.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = fn()
+    torch.cuda.synchronize()
+    counts = {"fused": resblock.LAUNCHES, "mega": mega_op.LAUNCHES}
+    want = {"fused": fused(out) if callable(fused) else fused,
+            "mega": mega(out) if callable(mega) else mega}
+    check(counts == want, f"{what}: {want} launches wanted, counted {counts}")
+    return out, time.perf_counter() - t0, counts
+
+
+def _add(total, counts):
+    for backend, n in counts.items():
+        total[backend] += n
+
+
+def headline_phase(dev):
+    """The ``headline`` phase: the port's ``tools/headline.py`` (its
+    ``main``) in the two HEADLINE_ARGV runs, every row held to its JAX
+    constant and its fused launches counted against its batches, candidates,
+    steps and blocks; ``tools/eval_nu_geo.py`` on ``ckpts/ddpm_nu_geo``, the
+    rows that are headline rows held to their constants; ``tools/co_guided.py``
+    (plain) in the CO_GUIDED_RUNS, held to CO_GUIDED_JAX, the guided row at
+    omega 0 apart from the unguided one. Returns (fields, launches)."""
+    import torch
+
+    from diffsg_tpu_torch.ops import mega, resblock
+    from diffsg_tpu_torch.tools import co_guided, eval_nu_geo, headline
+
+    rows, launches, t_row = {}, {"fused": 0, "mega": 0}, [0.0]
+
+    def on_row(row, metrics):
+        torch.cuda.synchronize()
+        T, blocks = _steps_and_blocks(row.ckpt)
+        want = -(-int(metrics["n_samples"]) // 512) * row.eval_kw.get("best_of", 1) * T * blocks
+        counts = {"fused": resblock.LAUNCHES, "mega": mega.LAUNCHES}
+        check(counts == {"fused": want, "mega": 0},
+              f"headline {row.name!r}: {want} fused launches wanted, counted {counts}")
+        _add(launches, counts)
+        rows[row.name] = {"seconds": time.perf_counter() - t_row[0], "launches": counts["fused"],
+                          "metrics": metrics,
+                          "diff_over_tol": _within(f"headline {row.name!r}", metrics,
+                                                   headline_constants(row.name))}
+        resblock.LAUNCHES = mega.LAUNCHES = 0
+        t_row[0] = time.perf_counter()
+
+    runs = []
+    for argv in HEADLINE_ARGV:
+        t_row[0] = time.perf_counter()
+        # on_row takes each row's launches; none may follow the last row.
+        printed, seconds, _ = _counted(f"headline {argv}",
+                                       lambda: headline.main(argv, on_row=on_row))
+        runs.append({"argv": argv, "rows": len(printed), "seconds": seconds})
+    check(set(rows) == set(HEADLINE_SEEDS) | set(HEADLINE_EVAL),
+          f"headline: rows {sorted(rows)}")
+
+    # eval_nu_geo: its repository-made configs at the two omegas.
+    T, blocks = _steps_and_blocks("ddpm_nu_geo")
+    omegas = sorted({w for _, w in EVAL_NU_GEO_ROWS})
+    lines, seconds, counts = _counted(
+        "eval_nu_geo",
+        lambda: eval_nu_geo.main(["--ckpt", os.path.join(REPO, "ckpts", "ddpm_nu_geo"),
+                                  "--omegas", *map(str, omegas)]),
+        fused=lambda printed: sum(-(-int(l["n_samples"]) // 512) * T * blocks
+                                  for l in printed if "omega" in l))
+    _add(launches, counts)
+    metric_lines = [l for l in lines if "omega" in l]
+    check(len(metric_lines) == 6, f"eval_nu_geo: {len(metric_lines)} rows")
+    geo = {"seconds": seconds, "launches": counts["fused"], "lines": lines, "held": {}}
+    for l in metric_lines:
+        check(np.isfinite(l["less_ratio"]), f"eval_nu_geo: {l}")
+        name = EVAL_NU_GEO_ROWS.get((l["config"], l["omega"]))
+        if name is not None:
+            geo["held"][name] = _within(f"eval_nu_geo {name!r}", l, HEADLINE_JAX[name])
+    check(len(geo["held"]) == len(EVAL_NU_GEO_ROWS), f"eval_nu_geo: held {geo['held']}")
+
+    # co_guided: the guided sampler on the plain forward (no kernel launches).
+    co, guided = {"runs": [], "rows": []}, {}
+    for argv in CO_GUIDED_RUNS:
+        argv = [os.path.join(REPO, a) if a.startswith(("ckpts/", "datasets/")) else a
+                for a in argv]
+        out, seconds, _ = _counted(f"co_guided {argv}", lambda: co_guided.main(argv))
+        co["runs"].append({"argv": argv, "seconds": seconds})
+        for r in out:
+            key = (r["omega"], r["gscale"])
+            guided[key] = r
+            co["rows"].append({**r, "diff_over_tol": _within(
+                f"co_guided omega {key[0]} gscale {key[1]}", r, CO_GUIDED_JAX[key])})
+    check(set(guided) == set(CO_GUIDED_JAX), f"co_guided: rows {sorted(guided)}")
+    # At omega 0 the tilt moves the answers further than both tolerances.
+    off, on = guided[(0.0, 0.0)], guided[(0.0, 3.0)]
+    for k in ("exceeded_ratio", "avg_diff"):
+        apart = CO_GUIDED_JAX[(0.0, 0.0)][k][1] + CO_GUIDED_JAX[(0.0, 3.0)][k][1]
+        check(abs(on[k] - off[k]) > apart,
+              f"co_guided omega 0: {k} {on[k]} at scale 3 and {off[k]} at scale 0, not "
+              f"{apart} apart")
+    return {"runs": runs, "rows": rows, "eval_nu_geo": geo, "co_guided": co}, launches
+
+
+def timing_phase(dev):
+    """The ``timing`` phase: ``tools/profile_sampler.py``'s profile of one
+    MSR-3c sampler call (T=100, B=8,192, omega 500) on ``fused`` and ``mega``,
+    each kernel's launches counted in the trace (27 x 100 and 100) and by its
+    wrapper (the warm call and the profiled one), the top device operations
+    reported; ``tools/serving_latency.py``'s table on NU (``nu_direct``, DDIM-3)
+    through a ``mega`` Solver with a bucket per size, each pipelined request's
+    result equal to a blocking request of its seed, bit for bit; and
+    ``tools/latency_probe.py`` on MSR-3c (plain). Returns (fields, launches)."""
+    from diffsg_tpu_torch.tools import latency_probe, profile_sampler, serving_latency
+
+    fields, launches = {"profile": {}}, {"fused": 0, "mega": 0}
+    for backend, (kernel, want) in PROFILE_KERNELS.items():
+        res, seconds, counts = _counted(
+            f"profile_sampler {backend}",
+            lambda: profile_sampler.profile(**PROFILE_SPEC, backend=backend, device=dev,
+                                            out=os.path.join(REPO, "build", "profile_sampler",
+                                                             backend)),
+            **{backend: 2 * want})
+        _add(launches, counts)
+        seen = sum(o["count"] for o in res["ops"] if kernel in o["name"])
+        check(seen == want, f"profile_sampler {backend}: {seen} {kernel} kernels in the "
+                            f"trace, not {want}")
+        fields["profile"][backend] = {
+            "seconds": seconds, "kernel_events": seen,
+            "device_ms": sum(o["total_ms"] for o in res["ops"]),
+            "kernel_ms": sum(o["total_ms"] for o in res["ops"] if kernel in o["name"]),
+            "trace_bytes": os.path.getsize(res["trace"]), "top_device_ops": res["ops"][:10]}
+
+    solver = serving_latency.make_solver(NU_CKPT, "nu_direct", SERVING_SIZES, dev, backend="mega")
+    reps, depth = SERVING_ARGS["repeats"], SERVING_ARGS["depth"]
+    # Three DDIM steps a request; a row's warm request runs its bucket's
+    # program eagerly once before the capture and then replays it.
+    table, seconds, counts = _counted(
+        "serving_latency", lambda: serving_latency.table(solver, SERVING_SIZES, **SERVING_ARGS),
+        mega=lambda table: 3 * len(table) * (2 + reps + depth))
+    _add(launches, counts)
+    for row, X, piped in table:
+        blocking, _, counts = _counted(
+            f"serving_latency batch {row['batch']}: the blocking twins",
+            lambda: [solver.solve(X, seed=1000 + i, sampler="ddim", n_steps=3)
+                     for i in range(len(piped))], mega=3 * depth)
+        _add(launches, counts)
+        for i, (p, b) in enumerate(zip(piped, blocking, strict=True)):
+            check(np.array_equal(p, b) and np.isfinite(p).all(),
+                  f"serving_latency batch {row['batch']}: pipelined request {i} differs from "
+                  f"the blocking one")
+    fields["serving_latency"] = {"seconds": seconds, "launches": launches["mega"],
+                                 "rows": [row for row, _, _ in table]}
+
+    paths = baseline_splits()
+    probe, seconds, _ = _counted(
+        "latency_probe",
+        lambda: latency_probe.main(["--task", "msr", "--ckpt", CKPT, "--dataset", paths["msr"],
+                                    "--repeats", str(LATENCY_REPEATS)]))
+    check(probe["single_sample_ms"] > 0 and probe["batched_solutions_per_sec"] > 0
+          and probe["T"] == 100, f"latency_probe: {probe}")
+    fields["latency_probe"] = {"seconds": seconds, **probe}
+    return fields, launches
+
+
+def research_phase(dev):
+    """The ``research`` phase: ``tools/dump_trajectory.py`` on CO (512 rows;
+    its last step's block equals ``sample_solutions``' decode of the same
+    seed to 1e-6: the host decodes the trajectory, the card the solutions),
+    ``tools/refine_labels.py`` with a model seed on a small nu-budget
+    set (the other columns passed through byte for byte, feasible labels,
+    rates that are the labels' and no lower than before, a mean ratio above
+    1), ``tools/refine_study.py`` on BASELINE_DATA's NU set (the best of the
+    starts never below start 0) and ``tools/nu12_to_geo15.py`` on that set
+    (its SHA-256 held to the JAX CLI's). Returns (fields, launches)."""
+    import torch
+
+    from diffsg_tpu_torch.data.datasets import make_rows, write_csv
+    from diffsg_tpu_torch.ops import nu_rate
+    from diffsg_tpu_torch.tasks import TASKS, sample_solutions
+    from diffsg_tpu_torch.tools import dump_trajectory, nu12_to_geo15, refine_labels, refine_study
+    from diffsg_tpu_torch.utils import load_checkpoint
+
+    paths = baseline_splits()
+    out_root = os.path.join(REPO, "build", "research_smoke")
+    os.makedirs(out_root, exist_ok=True)
+    fields, launches = {}, {"fused": 0, "mega": 0}
+
+    # dump_trajectory: CO, 512 rows, omega 500, and the same draw through
+    # sample_solutions.
+    co_ckpt = os.path.join(REPO, "ckpts", "ddpm_co")
+    T, blocks = _steps_and_blocks("ddpm_co")
+    traj, seconds, counts = _counted(
+        "dump_trajectory",
+        lambda: dump_trajectory.main(["--task", "co", "--ckpt", co_ckpt, "--dataset", paths["co"],
+                                      "--out", os.path.join(out_root, "co_denoise_path.csv"),
+                                      "--limit", "512"]),
+        fused=T * blocks)
+    _add(launches, counts)
+    task = TASKS["co"]
+    data = task.load(paths["co"])
+    ck = load_checkpoint(co_ckpt, device=dev)
+    (dec, _), _, ref_counts = _counted(
+        "dump_trajectory's sample_solutions twin",
+        lambda: sample_solutions(task, ck["params"], ck["sched"], data.X_test[:512], data.config,
+                                 omega=500.0, seed=0),
+        fused=T * blocks)
+    _add(launches, ref_counts)
+    D = task.data_dim(data.config)
+    # The trajectory is decoded on the host (decode_trace), the solutions on
+    # the card: the same softmax of the same last state, to float32 rounding.
+    last_err = float(np.abs(traj[:, -D:] - dec).max())
+    check(traj.shape == (512, T * D) and np.isfinite(traj).all() and last_err <= 1e-6,
+          f"dump_trajectory: shape {traj.shape}; its last step {last_err} from the decode")
+    fields["dump_trajectory"] = {"seconds": seconds, "shape": list(traj.shape),
+                                 "launches": counts["fused"] + ref_counts["fused"],
+                                 "last_step_max_abs_err": last_err}
+
+    # refine_labels: the expert-iteration path on a small nu-budget set.
+    src = os.path.join(REPO, *RESEARCH_BUDGET_CSV)
+    if not os.path.exists(src):
+        write_csv(src, make_rows(RESEARCH_BUDGET_ROWS[0], **RESEARCH_BUDGET_ROWS[1]))
+    raw = np.loadtxt(src, delimiter=",")
+    dst = os.path.join(out_root, "budget_refined.csv")
+    nb_ckpt = os.path.join(REPO, "ckpts", "ddpm_nu_budget")
+    T, blocks = _steps_and_blocks("ddpm_nu_budget")
+    # One model draw per budget group.
+    (stats,), seconds, counts = _counted(
+        "refine_labels",
+        lambda: refine_labels.main(["--budget-in", src, "--budget-out", dst, "--skip-indist",
+                                    "--iters", "50", "--starts", "4", "--model-seed", nb_ckpt]),
+        fused=len(np.unique(raw[:, 12])) * T * blocks)
+    _add(launches, counts)
+    out = np.loadtxt(dst, delimiter=",")
+    keep = [c for c in range(raw.shape[1]) if c not in range(6, 12)]
+    fields_in = [l.split(",") for l in open(src).read().splitlines()]
+    fields_out = [l.split(",") for l in open(dst).read().splitlines()]
+    rate = nu_rate(torch.as_tensor(out[:, 6:11], dtype=torch.float32),
+                   torch.as_tensor(out[:, :6], dtype=torch.float32)).numpy()
+    check(all(a[c] == b[c] for a, b in zip(fields_in, fields_out, strict=True) for c in keep)
+          and out[:, 6:8].min() >= 0 and out[:, 6:8].max() <= 400
+          and out[:, 8:11].min() >= -1e-5
+          and np.allclose(out[:, 8:11].sum(axis=1), raw[:, 12], rtol=1e-5, atol=0)
+          and np.allclose(out[:, 11], rate, rtol=1e-4, atol=0)
+          and (out[:, 11] >= raw[:, 11]).all() and stats["mean_ratio"] > 1.0,
+          f"refine_labels: the CSV contract failed ({stats})")
+    fields["refine_labels"] = {"seconds": seconds, "launches": counts["fused"], **stats}
+
+    # refine_study: on BASELINE_DATA's 18 mW NU set.
+    study, seconds, counts = _counted(
+        "refine_study",
+        lambda: refine_study.main(["--iters", "20", "--starts", "4", "--ckpt", nb_ckpt,
+                                   "--dataset", paths["nu"]]),
+        fused=lambda study: -(-study["n"] // 512) * T * blocks)
+    _add(launches, counts)
+    check(all(np.isfinite(v) for k, v in study.items() if k not in ("dataset",))
+          and all(study[f"random4_it{n}"] >= study[f"random1_it{n}"] for n in (20, 80)),
+          f"refine_study: {study}")
+    fields["refine_study"] = {"seconds": seconds, "launches": counts["fused"], **study}
+
+    # nu12_to_geo15: the JAX CLI's bytes.
+    geo = os.path.join(out_root, "nu_geo15.csv")
+    _counted("nu12_to_geo15",
+             lambda: nu12_to_geo15.main(["--inp", paths["nu"], "--power", "18", "--width", "400",
+                                         "--height", "400", "--out", geo]))
+    with open(geo, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    check(sha == NU12_TO_GEO15_SHA256, f"nu12_to_geo15: SHA-256 {sha}")
+    fields["nu12_to_geo15"] = {"sha256_match": True}
     return fields, launches
 
 
@@ -2737,8 +3254,15 @@ def main() -> int:
                                            for k, (m, t) in constants[name].items()}}
         return out
 
-    eval_out.update(eval_rows(EVAL_SPECS, EVAL_JAX))
+    # The headline phase runs EVAL_SPECS' other rows through tools/headline.py.
+    eval_out.update(eval_rows({k: EVAL_SPECS[k] for k in EVAL_ONLY}, EVAL_JAX))
     emit("eval", **eval_out)
+
+    # -- headline: the quality CLIs (headline, eval_nu_geo, co_guided) ------------------
+    headline_out, headline_launches = headline_phase(dev)
+    for backend, count in headline_launches.items():
+        new_launches[backend] += count
+    emit("headline", **headline_out)
 
     # -- train: training on the card, and the trained nets served --------------------
     train_out, train_launches = train_phase(dev)
@@ -2776,9 +3300,6 @@ def main() -> int:
                                                         ROWS, turns)}
     emit("serve_multi_zoo", **zoo_out)
 
-    # -- eval_zoo: the zoo's headline rows --------------------------------------------
-    emit("eval_zoo", **eval_rows(EVAL_ZOO_SPECS, EVAL_ZOO_JAX))
-
     # -- baselines, train_baselines, report: DiffSG against GD, MTFNN and PPO -----------
     emit("baselines", **baselines_phase(dev))
     emit("train_baselines", **train_baselines_phase(dev))
@@ -2795,6 +3316,13 @@ def main() -> int:
     pair_row = serve_spec("msr_temp", "pair", SERVE_B, [0])
     legacy_out["pair_request"] = public_row(pair_row)
     emit("legacy", **legacy_out)
+
+    # -- timing and research: the profiling, serving-latency and research CLIs ----------
+    for phase in (timing_phase, research_phase):
+        out, launches = phase(dev)
+        for backend, count in launches.items():
+            new_launches[backend] += count
+        emit(phase.__name__[:-len("_phase")], **out)
 
     # -- kernels: one line per kernel ---------------------------------------------
     main_shapes = [r for r in per_shape if r["per_forward"] and r["net"] == "msr"]
@@ -2813,8 +3341,8 @@ def main() -> int:
          "library_ms": None,
          "per": f"one MSR-3c forward: the 27 launches at {ROWS} rows; launches over the "
                 f"2 fused serving requests, serve_graph's 8 fused requests (4 replayed), and "
-                f"serve_co, the multi-task phases, eval, train, train_clis, serve_multi_zoo, "
-                f"eval_zoo, report and mesh ({new_launches['fused']})",
+                f"serve_co, the multi-task phases, eval, headline, train, train_clis, "
+                f"serve_multi_zoo, report, mesh, timing and research ({new_launches['fused']})",
          "co_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
                               if r["net"] == "co"),
          "multi80_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
@@ -2837,8 +3365,8 @@ def main() -> int:
                 f"serve_nu ({serve_nu_launches}), serve_nu_bf16 ({serve_nu_bf16_launches}), "
                 f"serve_graph ({serve_graph_launches['mega']}), serve_best_of "
                 f"({serve_best_of_launches}) and the CO, MSR-variant, conditioned-NU, "
-                f"refinement, multi-task, train, train_clis, serve_multi_zoo, report and mesh "
-                f"phases ({new_launches['mega']})",
+                f"refinement, multi-task, train, train_clis, serve_multi_zoo, report, mesh "
+                f"and timing phases ({new_launches['mega']})",
          "cases": [{k: r[k] for k in ("net", "dtype", "rows", "tile_rows", "max_abs_err",
                                       "mean_abs_err", "kernel_ms", "plain_ms", "plain_bf16_ms",
                                       "bound_ms", "bound_by")}

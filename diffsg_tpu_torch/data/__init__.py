@@ -1,3 +1,4 @@
+from . import generators
 from .datasets import ensure_datasets
 from .generators import msr_waterfilling_labels, sum_rate_gen, write_msr_csv
 from .loaders import (MSR_W_REF, NU_P_REF, TaskData, load_co, load_msr, load_msr_budget, load_nu,

@@ -30,6 +30,12 @@ def cosine_beta_schedule(T: int, s: float = 0.008, beta_clip: float = 0.84) -> n
     return np.minimum(betas, beta_clip)
 
 
+def linear_beta_schedule(T: int, low: float, high: float) -> np.ndarray:
+    """Linear schedule from ``low`` to ``high`` over ``T`` steps (float64
+    NumPy), as the reference's ``generate_linear_schedule``."""
+    return np.linspace(low, high, T)
+
+
 class Schedule(NamedTuple):
     """Precomputed diffusion coefficients, float32 tensors of shape ``(T,)``."""
 

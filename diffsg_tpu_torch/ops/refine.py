@@ -100,3 +100,36 @@ def projected_refine(
             s = torch.where(ok, s_try, s)
             st = torch.where(ok[:, None], st * grow, st * shrink)
     return Y
+
+
+def random_starts(starts: Union[int, torch.Tensor], project_fn: Callable[[torch.Tensor],
+                  torch.Tensor], box: torch.Tensor, shape: Sequence[int], seed: int,
+                  device: torch.device) -> list:
+    """Feasible random starts for solutions whose first two columns are a
+    position in ``box`` ((2,) or (B, 2)): unit-uniform draws of ``shape``
+    (B, D), the position scaled to the box, each start projected. ``starts``
+    is their number, drawn one after another from a ``torch.Generator``
+    seeded by ``seed`` on ``device``, or the unit draws themselves, a tensor
+    (n, B, D)."""
+    if isinstance(starts, torch.Tensor):
+        units = [u.to(device=device, dtype=torch.float32) for u in starts]
+    else:
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        units = [torch.rand(tuple(shape), generator=gen, device=device) for _ in range(starts)]
+    return [project_fn(torch.cat([u[:, :2] * box, u[:, 2:]], dim=1)) for u in units]
+
+
+def best_of_starts(refine_fn: Callable[[torch.Tensor], torch.Tensor],
+                   objective_fn: Callable[[torch.Tensor], torch.Tensor], starts: Sequence,
+                   best: torch.Tensor):
+    """Per row, the highest-``objective_fn`` of ``best`` and each start
+    refined by ``refine_fn``, in order (a later start replaces the best
+    only where it is strictly higher). Returns (Y, objective)."""
+    best_r = objective_fn(best)
+    for Y0 in starts:
+        Yi = refine_fn(Y0)
+        ri = objective_fn(Yi)
+        take = ri > best_r
+        best = torch.where(take[:, None], Yi, best)
+        best_r = torch.where(take, ri, best_r)
+    return best, best_r

@@ -263,7 +263,7 @@ class Solver:
     @torch.inference_mode()
     def solve(self, X: np.ndarray, omega=None, best_of: int = 1, seed: int = 0,
               sampler: str = "ddpm", n_steps: Optional[int] = None, eta: float = 0.0,
-              renorm_steps: Optional[int] = None) -> np.ndarray:
+              renorm_steps: Optional[int] = None, _block: bool = True):
         """Conditions (B, C), loader-normalized -> decoded solutions (B, D).
 
         omega: a scalar, or a list of per-candidate guidance scales (a
@@ -283,9 +283,13 @@ class Solver:
         A candidate's noise is drawn row-major: DDPM (n, T+1, D), column 0
         y_T and columns 1.. the per-step z; DDIM (n, 1, D), or (n, 1+s, D)
         with its s per-step noises when ``eta > 0``.
+
+        _block: with False, return the (B, D) solutions on the device
+          without waiting for them (the launches are asynchronous); a
+          caller can issue several requests before it copies any result.
         """
-        return self._solve(X, omega, best_of, seed, sampler, n_steps, eta,
-                           renorm_steps).cpu().numpy()
+        out = self._solve(X, omega, best_of, seed, sampler, n_steps, eta, renorm_steps)
+        return out.cpu().numpy() if _block else out
 
     @torch.inference_mode()
     def solve_chunked(self, X: np.ndarray, chunk_size: int = 512, seed: int = 0,

@@ -30,8 +30,9 @@ def _rows(arr: torch.Tensor) -> np.ndarray:
 
 
 def decode_trace(task_name: str, trace: SampleTrace, config: Dict) -> np.ndarray:
-    """Per-step decode of a captured trajectory -> (B, T*D) array."""
-    ys = trace.ys
+    """Per-step decode of a captured trajectory (tensors, or the NumPy
+    arrays ``tasks.sample_solutions`` returns) -> (B, T*D) array."""
+    ys = torch.as_tensor(trace.ys)
     if task_name == "msr":
         decoded = [torch.softmax(ys[i], dim=1) if i <= 2 else msr_decode(ys[i])
                    for i in range(ys.shape[0])]

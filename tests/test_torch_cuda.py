@@ -838,35 +838,52 @@ def test_cuda_dryrun_multichip_one_rank():
 @pytest.mark.cuda
 def test_cuda_legacy_sample_matches_cpu():
     """legacy_sample on the card against the CPU on the same injected
-    Dirichlet draws (MSR clamp, a small net as the denoiser)."""
+    Dirichlet draws (MSR clamp, a small net as the denoiser), each float32
+    run also held to a float64 run on the CPU.
+
+    The float64 run is the witness for the bound: each step's whole-tensor
+    min-max rescales rounding differences, so the CPU's own float32 run
+    lies up to 1.1e-4 from the float64 one (at one entry of 768; 1.5e-7 on
+    the mean). The card must be no further from the float64 run than twice
+    the CPU's float32 run is, and within 1e-4 of the CPU's float32 run, as
+    chip_smoke.py's legacy phase holds its run."""
+    import copy
+
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from diffsg_tpu_torch.diffusion import cosine_schedule
+    from diffsg_tpu_torch.diffusion import Schedule, cosine_schedule
     from diffsg_tpu_torch.diffusion.legacy import legacy_sample
 
     torch.backends.cuda.matmul.allow_tf32 = False
     B, T = 256, 10
     rng = np.random.default_rng(4)
-    cond = rng.uniform(0, 1, (B, 3)).astype(np.float32)
-    init = torch.from_numpy(rng.dirichlet(np.ones(3), B).astype(np.float32))
-    steps = torch.from_numpy((rng.dirichlet(np.full(3, 3.0), (T, B)) - 1 / 3)
-                             .astype(np.float32))
+    cond = rng.uniform(0, 1, (B, 3))
+    init = rng.dirichlet(np.ones(3), B).astype(np.float32)
+    steps = (rng.dirichlet(np.full(3, 3.0), (T, B)) - 1 / 3).astype(np.float32)
     torch.manual_seed(0)
     net = UNet1D(input_dim=3, proj_dim=32, cond_dim=3, dims=(16, 8), n_blocks=1,
                  is_attn=(False, False))
     out = {}
-    for device in ("cpu", "cuda"):
-        model = net.to(device)
-        ones = torch.ones(B, 1, device=device)
+    for device, dtype in (("cpu", torch.float32), ("cuda", torch.float32),
+                          ("cpu", torch.float64)):
+        model = copy.deepcopy(net).to(device, dtype)
+        sched = Schedule(*(c.to(dtype) for c in cosine_schedule(T, device=device)))
+        ones = torch.ones(B, 1, device=device, dtype=dtype)
+
+        def f(a):
+            return torch.from_numpy(a).to(device, dtype)
         with torch.no_grad():
-            out[device] = legacy_sample(lambda y, t, c: model(y, t / T, c, ones),
-                                        cosine_schedule(T, device=device),
-                                        torch.from_numpy(cond).to(device), 3,
-                                        task="MAX SUM RATE", init=init,
-                                        step_noise=steps)[0].cpu()
-    # Each step's whole-tensor min-max rescales the two devices' rounding
-    # differences; chip_smoke.py's legacy phase holds its run to the same.
-    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
+            out[device, dtype] = legacy_sample(lambda y, t, c: model(y, t / T, c, ones), sched,
+                                               f(cond.astype(np.float32)), 3,
+                                               task="MAX SUM RATE", init=f(init),
+                                               step_noise=f(steps))[0].cpu().double()
+    exact = out["cpu", torch.float64]
+    cpu_drift = float((out["cpu", torch.float32] - exact).abs().max())
+    card_drift = float((out["cuda", torch.float32] - exact).abs().max())
+    assert 0 < cpu_drift < 1e-3, cpu_drift
+    assert card_drift <= 2 * cpu_drift, (card_drift, cpu_drift)
+    torch.testing.assert_close(out["cuda", torch.float32], out["cpu", torch.float32], rtol=0,
+                               atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -913,3 +930,50 @@ def test_cuda_pair_backend_matches_plain():
     out = {b: _serve_solver("ddpm_nu_3u_aug32_s8c", "nu_direct", b,
                             buckets=(512,)).solve(X, **kw) for b in ("plain", "pair")}
     np.testing.assert_allclose(out["pair"], out["plain"], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_unblocked_requests_equal_blocking_ones():
+    """``Solver.solve(_block=False)`` returns the solutions on the card,
+    cut to the real rows, before they are waited for; four requests issued
+    back to back from one bucket's graph equal blocking requests of their
+    seeds bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    solver = _serve_solver("ddpm_nu_3u_aug32_s8c", "nu_direct", "mega", buckets=(512,))
+    X = np.random.default_rng(7).uniform(0.05, 0.95, (300, 6)).astype(np.float32)
+    kw = {"sampler": "ddim", "n_steps": 3}
+    solver.solve(X, **kw)
+    pending = [solver.solve(X, seed=10 + i, _block=False, **kw) for i in range(4)]
+    assert all(p.is_cuda and p.shape == (300, 5) for p in pending)
+    for i, p in enumerate(pending):
+        np.testing.assert_array_equal(p.cpu().numpy(), solver.solve(X, seed=10 + i, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_refine_rows_matches_cpu():
+    """``tools/refine_labels.refine_rows`` on the card against the CPU on
+    the same starts (the label and two random starts, 3 steps, 256 rows of
+    uniform power splits): the rates agree to 1e-5; a label may part only
+    where the two devices' objectives tie at an accept test, and then its
+    rate agrees to one float32 ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diffsg_tpu_torch.tools.refine_labels import refine_rows
+
+    rng = np.random.default_rng(9)
+    B = 256
+    coords = rng.uniform(0, 400, (B, 6))
+    budgets = rng.choice([9.0, 18.0, 27.0], B)
+    Y0 = np.concatenate([rng.uniform(100, 300, (B, 2)), np.repeat(budgets[:, None] / 3, 3, 1)],
+                        axis=1)
+    starts = torch.from_numpy(rng.uniform(0, 1, (2, B, 5)).astype(np.float32))
+    out = {dev: refine_rows(coords, Y0, budgets, 3, starts, 0, 400.0, 400.0, device=dev)
+           for dev in ("cpu", "cuda")}
+    (Yc, Rc, _), (Yg, Rg, _) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(Rg, Rc, rtol=1e-5, atol=0)
+    part = ~np.isclose(Yg, Yc, rtol=1e-5, atol=1e-5).all(axis=1)
+    assert part.mean() <= 0.02, np.nonzero(part)
+    assert (np.abs(Rg[part] - Rc[part]) <= np.spacing(Rc[part].astype(np.float32))).all()
+    assert np.isfinite(Yg).all()
