@@ -109,7 +109,15 @@ their answers:
   ``tools/refine_labels.py`` with a model seed on a small nu-budget set,
   ``tools/refine_study.py`` and ``tools/nu12_to_geo15.py`` on the 18 mW NU
   set, each held to its contract (the last, byte for byte, to the JAX
-  CLI's output).
+  CLI's output);
+* checkpoints through the orbax twin (``orbax``, ``utils/orbax_io.py``, no
+  orbax on this machine): the JAX package's OCDBT/zstd checkpoint of the NU
+  net (``tests/fixtures/orbax_ddpm_nu_3u_aug32_s8c``) read onto the card,
+  equal to the npz, and served at B = 524,288 on ``mega`` (the Solver's
+  float32 program and the bf16 production row); MSR-3c written by the
+  port's ``save_checkpoint_orbax``, read back equal, and served at B = 8,192
+  on ``fused`` from its bucket's graph; each against the npz-loaded Solver
+  bit for bit, with the read and write times.
 
 The residual-block kernel is held to its plain version at every block
 shape of the MSR-3c forward (16,384 rows) and of the CO forward (65,536
@@ -1938,6 +1946,185 @@ def research_phase(dev):
     return fields, launches
 
 
+# The JAX package's save_checkpoint_orbax of ckpts/ddpm_nu_3u_aug32_s8c
+# (OCDBT, zstd; params as jax.Array values), and where the port writes
+# MSR-3c through its own save_checkpoint_orbax.
+ORBAX_NU = os.path.join(REPO, "tests", "fixtures", "orbax_ddpm_nu_3u_aug32_s8c")
+ORBAX_MSR_OUT = os.path.join(REPO, "build", "orbax_msr_3c_T100")
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def orbax_phase(dev):
+    """The ``orbax`` phase: checkpoints read and written by the port's orbax
+    twin (``utils/orbax_io.py``: OCDBT, zarr v2 and zstd by hand, no orbax),
+    served through both kernels.
+
+    (a) ORBAX_NU read onto the card with ``load_checkpoint_orbax``, every
+    array equal to the npz's; a Solver built from it by the constructor
+    ``Solver.from_checkpoint`` calls, against the npz-loaded Solver, bit for
+    bit, on ``mega`` at B = 524,288, DDIM-3, omega 0.125: the Solver's own
+    float32 program, and the production bf16 row (a bf16 copy of each net,
+    bf16 conditions and noise) through the same Solver's net and schedule.
+    (b) MSR-3c T=100 (params, EMA, step, betas, metadata) written by
+    ``save_checkpoint_orbax`` on this host and read back, all of it
+    bit-equal; served at B = 8,192, omega 500 on ``fused`` from the bucket's
+    CUDA graph against the npz-loaded Solver, bit for bit.
+
+    The read and write seconds and MB/s of each checkpoint, with the host's
+    OCDBT walk and zstd decode of the NU checkpoint on their own. Returns
+    (fields, launches)."""
+    import copy
+
+    import torch
+
+    from diffsg_tpu_torch.diffusion import ddim_sample
+    from diffsg_tpu_torch.models import unet_apply_fn
+    from diffsg_tpu_torch.serve import Solver
+    from diffsg_tpu_torch.tasks import TASKS, loaded_model
+    from diffsg_tpu_torch.utils import load_checkpoint
+    from diffsg_tpu_torch.utils._ocdbt import read_ocdbt
+    from diffsg_tpu_torch.utils._zstd import decompress
+    from diffsg_tpu_torch.utils.orbax_io import load_checkpoint_orbax, save_checkpoint_orbax
+
+    fields, launches = {}, {"fused": 0, "mega": 0}
+    mb = 1e6
+
+    def same_tree(a, b, what):
+        check(a.keys() == b.keys(), f"{what}: keys differ")
+        for k in a:
+            if isinstance(a[k], dict):
+                same_tree(a[k], b[k], f"{what}/{k}")
+            else:
+                check(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]),
+                      f"{what}/{k} differs")
+
+    def same_checkpoint(got, want, what):
+        same_tree(got["params"], want["params"], f"{what} params")
+        check(got["ema"].params.keys() == want["ema"].params.keys()
+              and all(torch.equal(got["ema"].params[k], want["ema"].params[k])
+                      for k in want["ema"].params), f"{what}: EMA params differ")
+        check((got["ema"].n_averaged, got["step"], got["metadata"])
+              == (want["ema"].n_averaged, want["step"], want["metadata"]),
+              f"{what}: n_averaged, step or metadata differ")
+        check(got["sched"].betas.device == dev
+              and all(torch.equal(getattr(got["sched"], f), getattr(want["sched"], f))
+                      for f in want["sched"]._fields), f"{what}: schedule differs")
+
+    def solver_from(ck, task, backend, buckets=None):
+        config = dict(ck["metadata"].get("dataset_config") or {})
+        t = TASKS[task]
+        return Solver(t, loaded_model(t, ck["params"], config, dev), ck["sched"], config,
+                      backend, buckets)
+
+    def turns(what, request, **counts):
+        """``request(name)`` for the npz, orbax, orbax and npz Solver; every
+        answer equal to the first."""
+        answers, seconds = [], {}
+        for name in ("npz", "orbax", "orbax", "npz"):
+            P, s, c = _counted(f"{what} {name}", lambda: request(name), **counts)
+            _add(launches, c)
+            answers.append(P)
+            seconds.setdefault(name, []).append(s)
+        check(all(np.array_equal(P, answers[0]) for P in answers[1:]),
+              f"{what}: the orbax-loaded Solver's solutions differ from the npz-loaded one's")
+        return answers[0], seconds
+
+    # (a) the JAX-written NU checkpoint
+    nbytes = _dir_bytes(ORBAX_NU)
+    t0 = time.perf_counter()
+    store = read_ocdbt(ORBAX_NU)
+    store_s = time.perf_counter() - t0
+    chunks = [v for k, v in store.items() if not k.endswith(b"/.zarray")]
+    t0 = time.perf_counter()
+    decoded = sum(len(decompress(c)) for c in chunks)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck = load_checkpoint_orbax(ORBAX_NU, device=dev)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    same_checkpoint(ck, load_checkpoint(NU_CKPT, device=dev, training=True), "NU orbax")
+    nu = {"npz": Solver.from_checkpoint(NU_CKPT, task="nu_direct", device=dev, backend="mega"),
+          "orbax": solver_from(ck, "nu_direct", "mega")}
+    XN = np.random.default_rng(17).uniform(0, 1, (NU_B, 6)).astype(np.float32)
+
+    def nu_check(S, what):
+        check(S.shape == (NU_B, 5) and bool(np.isfinite(S).all())
+              and bool(((S[:, :2] >= 0) & (S[:, :2] <= 400)).all())
+              and bool((S[:, 2:] >= 0).all()), f"{what}: NU solutions out of range")
+
+    f32, f32_s = turns("orbax NU f32", lambda name: nu[name].solve(
+        XN, omega=NU_OMEGA, sampler="ddim", n_steps=NU_STEPS, seed=0), mega=NU_STEPS)
+    nu_check(f32, "orbax NU f32")
+    bf16_apply = {name: unet_apply_fn(copy.deepcopy(s.model).to(torch.bfloat16), "mega")
+                  for name, s in nu.items()}
+    cond = torch.tensor(XN, device=dev).to(torch.bfloat16)
+
+    def bf16_request(name):
+        s = nu[name]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        init = torch.randn((NU_B, 5), generator=gen, device=dev, dtype=torch.bfloat16)
+        with torch.inference_mode():
+            y0 = ddim_sample(bf16_apply[name], s.sched, cond, NU_OMEGA, 5, n_steps=NU_STEPS,
+                             init_noise=init)
+            return s.task.decode(y0.float(), s.config).cpu().numpy()
+
+    bf16, bf16_s = turns("orbax NU bf16", bf16_request, mega=NU_STEPS)
+    nu_check(bf16, "orbax NU bf16")
+    fields["nu_jax_written"] = {
+        "path": os.path.relpath(ORBAX_NU, REPO), "bytes": nbytes, "keys": len(store),
+        "ocdbt_s": store_s, "zstd_decode_s": decode_s, "zstd_decoded_bytes": decoded,
+        "zstd_decode_mb_per_s": decoded / mb / decode_s, "read_s": read_s,
+        "read_mb_per_s": nbytes / mb / read_s, "B": NU_B, "steps": NU_STEPS,
+        "omega": NU_OMEGA, "f32_request_s": f32_s, "bf16_request_s": bf16_s,
+        "bit_equal": True}
+    del nu, bf16_apply, ck, store, chunks
+    torch.cuda.empty_cache()
+
+    # (b) MSR-3c through the port's writer
+    T, blocks = _steps_and_blocks("ddpm_msr_3c_T100")
+    src = load_checkpoint(CKPT, device=dev, training=True)
+    t0 = time.perf_counter()
+    save_checkpoint_orbax(ORBAX_MSR_OUT, src["params"], ema=src["ema"], step=src["step"],
+                          sched=src["sched"], metadata=src["metadata"])
+    write_s = time.perf_counter() - t0
+    wbytes = _dir_bytes(ORBAX_MSR_OUT)
+    t0 = time.perf_counter()
+    back = load_checkpoint_orbax(ORBAX_MSR_OUT, device=dev)
+    torch.cuda.synchronize()
+    mread_s = time.perf_counter() - t0
+    same_checkpoint(back, src, "MSR-3c orbax")
+    msr = {"npz": Solver.from_checkpoint(CKPT, task="msr", device=dev, backend="fused",
+                                         buckets=(SERVE_B,)),
+           "orbax": solver_from(back, "msr", "fused", (SERVE_B,))}
+    X = np.random.default_rng(18).uniform(0, 1, (SERVE_B, 3)).astype(np.float32)
+    capture_s = {}
+    for name, s in msr.items():  # the warm run, the capture and one replay
+        _, capture_s[name], c = _counted(f"orbax MSR capture {name}", lambda: s.solve(X, seed=0),
+                                         fused=2 * T * blocks)
+        _add(launches, c)
+    P, msr_s = turns("orbax MSR fused graph", lambda name: msr[name].solve(X, seed=1),
+                     fused=T * blocks)
+    W = msr["npz"].config["W"]
+    check(P.shape == (SERVE_B, 3) and bool(np.isfinite(P).all()) and bool((P >= 0).all())
+          and float(np.abs(P.sum(axis=1) - W).max()) <= 1e-4 * W,
+          "orbax MSR: solutions infeasible")
+    fields["msr_port_written"] = {
+        "path": os.path.relpath(ORBAX_MSR_OUT, REPO), "bytes": wbytes, "write_s": write_s,
+        "write_mb_per_s": wbytes / mb / write_s, "read_s": mread_s,
+        "read_mb_per_s": wbytes / mb / mread_s, "B": SERVE_B, "T": T,
+        "omega": msr["npz"].task.default_omega, "capture_s": capture_s, "request_s": msr_s,
+        "bit_equal": True}
+    fields["launches"] = dict(launches)
+    fields["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return fields, launches
+
+
 MESH_STORE = os.path.join(REPO, "build", "mesh_store")
 
 
@@ -3317,8 +3504,9 @@ def main() -> int:
     legacy_out["pair_request"] = public_row(pair_row)
     emit("legacy", **legacy_out)
 
-    # -- timing and research: the profiling, serving-latency and research CLIs ----------
-    for phase in (timing_phase, research_phase):
+    # -- timing, research and orbax: the profiling, serving-latency and research CLIs, --
+    # -- and checkpoints through the orbax twin ------------------------------------------
+    for phase in (timing_phase, research_phase, orbax_phase):
         out, launches = phase(dev)
         for backend, count in launches.items():
             new_launches[backend] += count
@@ -3342,7 +3530,8 @@ def main() -> int:
          "per": f"one MSR-3c forward: the 27 launches at {ROWS} rows; launches over the "
                 f"2 fused serving requests, serve_graph's 8 fused requests (4 replayed), and "
                 f"serve_co, the multi-task phases, eval, headline, train, train_clis, "
-                f"serve_multi_zoo, report, mesh, timing and research ({new_launches['fused']})",
+                f"serve_multi_zoo, report, mesh, timing, research and orbax "
+                f"({new_launches['fused']})",
          "co_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
                               if r["net"] == "co"),
          "multi80_forward_ms": sum(r["kernel_ms"] * r["per_forward"] for r in per_shape
@@ -3365,8 +3554,8 @@ def main() -> int:
                 f"serve_nu ({serve_nu_launches}), serve_nu_bf16 ({serve_nu_bf16_launches}), "
                 f"serve_graph ({serve_graph_launches['mega']}), serve_best_of "
                 f"({serve_best_of_launches}) and the CO, MSR-variant, conditioned-NU, "
-                f"refinement, multi-task, train, train_clis, serve_multi_zoo, report, mesh "
-                f"and timing phases ({new_launches['mega']})",
+                f"refinement, multi-task, train, train_clis, serve_multi_zoo, report, mesh, "
+                f"timing and orbax phases ({new_launches['mega']})",
          "cases": [{k: r[k] for k in ("net", "dtype", "rows", "tile_rows", "max_abs_err",
                                       "mean_abs_err", "kernel_ms", "plain_ms", "plain_bf16_ms",
                                       "bound_ms", "bound_by")}

@@ -977,3 +977,42 @@ def test_cuda_refine_rows_matches_cpu():
     assert part.mean() <= 0.02, np.nonzero(part)
     assert (np.abs(Rg[part] - Rc[part]) <= np.spacing(Rc[part].astype(np.float32))).all()
     assert np.isfinite(Yg).all()
+
+
+@pytest.mark.cuda
+def test_cuda_orbax_fixture_loads_onto_the_card():
+    """The JAX package's orbax checkpoint of the NU net (OCDBT, zstd),
+    read by the port's ``load_checkpoint_orbax`` onto the card: the
+    schedule on the card, every array and the schedule bit-equal to the npz
+    checkpoint's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import pathlib
+
+    from diffsg_tpu_torch.utils import load_checkpoint
+    from diffsg_tpu_torch.utils.orbax_io import load_checkpoint_orbax
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    got = load_checkpoint_orbax(str(root / "tests" / "fixtures" / "orbax_ddpm_nu_3u_aug32_s8c"),
+                                device="cuda")
+    want = load_checkpoint(str(root / "ckpts" / "ddpm_nu_3u_aug32_s8c"), device="cuda",
+                           training=True)
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+        return out
+
+    g, w = flat(got["params"]), flat(want["params"])
+    assert sorted(g) == sorted(w)
+    for k in w:
+        assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
+    assert got["sched"].betas.is_cuda
+    for name in want["sched"]._fields:
+        assert torch.equal(getattr(got["sched"], name), getattr(want["sched"], name)), name
+    assert sorted(got["ema"].params) == sorted(want["ema"].params)
+    for k, v in want["ema"].params.items():
+        assert torch.equal(got["ema"].params[k], v), k
+    assert (got["step"], got["metadata"], got["ema"].n_averaged) == \
+        (want["step"], want["metadata"], want["ema"].n_averaged)

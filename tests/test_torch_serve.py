@@ -96,7 +96,7 @@ def test_entry_points_raise_without_a_card():
         Solver.from_checkpoint(str(CKPT), task="msr")
 
 
-_FORBIDDEN = re.compile(r"^(jax|flax|optax|diffsg_tpu|pandas)(\.|$)")
+_FORBIDDEN = re.compile(r"^(jax|flax|optax|diffsg_tpu|pandas|orbax|tensorstore|zstandard)(\.|$)")
 
 
 @pytest.mark.parametrize("path", sorted(
