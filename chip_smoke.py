@@ -2448,6 +2448,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from diffsg_tpu_torch import obs
     from diffsg_tpu_torch.baselines import waterfilling
     from diffsg_tpu_torch.diffusion import cfg_sample, ddim_sample
     from diffsg_tpu_torch.models import UNet1D, unet_apply_fn, unet_forward_fused
@@ -2477,10 +2478,12 @@ def main() -> int:
 
     # -- build: one nvcc per source, all started together ------------------------
     _build.library()
-    ptxas = [ln.strip() for ln in _build.BUILD_LOG.splitlines()
+    built = [s for s in obs.spans() if s.name == "kernels.build"]
+    log = built[-1].attrs["log"] if built else ""
+    ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit("build", nvcc_s=_build.BUILD_SECONDS, cached=_build.BUILD_SECONDS is None,
-         flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas)
+    emit("build", nvcc_s=(built[-1].end_ns - built[-1].start_ns) / 1e9 if built else None,
+         cached=not built, flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas)
 
     # -- kernel: every (in, out, shortcut) shape of the MSR-3c forward, and the ---
     # -- proj-256 net's two widest shapes ------------------------------------------

@@ -5,7 +5,9 @@ together, and the objects are linked into one shared library with a plain C
 interface, loaded with ``ctypes``; no PyTorch headers, so the build takes
 seconds. The library lands in ``build/diffsg_tpu_torch/`` under the
 repository root, named by a hash of the sources and flags, and is built at
-first use.
+first use. The build and the load are the set-up spans ``kernels.build``
+(cold checkouts only; attribute ``log``: the compiler's report, ptxas
+registers, spills and shared memory) and ``kernels.load`` (``diffsg_tpu_torch.obs``).
 """
 
 from __future__ import annotations
@@ -16,18 +18,14 @@ import os
 import pathlib
 import shutil
 import subprocess
-import time
 from typing import Optional
+
+from .. import obs
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _BUILD_DIR = _PKG.parent / "build" / "diffsg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
-
-#: Seconds the last build in this process took (None: nothing was built).
-BUILD_SECONDS: Optional[float] = None
-#: The compiler's report of the last build (ptxas registers, spills, smem).
-BUILD_LOG: str = ""
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -42,7 +40,7 @@ def _nvcc() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source set has no
     library yet."""
-    global _LIB, BUILD_SECONDS, BUILD_LOG
+    global _LIB
     if _LIB is not None:
         return _LIB
     sources = sorted((_PKG / "csrc").glob("*.cu"))
@@ -51,27 +49,33 @@ def library() -> ctypes.CDLL:
         digest.update(src.read_bytes())
     so = _BUILD_DIR / f"libdiffsg_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = f"{os.getpid()}.tmp"
-        objs = [so.with_name(f"{src.stem}_{digest.hexdigest()[:16]}.{tag}.o") for src in sources]
-        tmp = so.with_name(f"{so.name}.{tag}")
-        nvcc = _nvcc()
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for src, obj in zip(sources, objs)]
-        logs = [proc.communicate()[1] for proc in procs]
-        for src, proc, log in zip(sources, procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        for obj in objs:
-            obj.unlink()
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
-        BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = "".join(logs)
-        os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
-    _LIB = ctypes.CDLL(str(so))
+        with obs.setup("kernels.build") as attrs:
+            _compile(sources, so, digest.hexdigest()[:16], attrs)
+    with obs.setup("kernels.load"):
+        _LIB = ctypes.CDLL(str(so))
     return _LIB
+
+
+def _compile(sources, so: pathlib.Path, tag: str, attrs: dict) -> None:
+    """Build ``so`` from ``sources``; the compiler's report goes to
+    ``attrs["log"]``."""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pid = f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{src.stem}_{tag}.{pid}.o") for src in sources]
+    tmp = so.with_name(f"{so.name}.{pid}")
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[1] for proc in procs]
+    for src, proc, log in zip(sources, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    attrs["log"] = "".join(logs)
+    os.replace(tmp, so)  # atomic: concurrent builders never load a partial file

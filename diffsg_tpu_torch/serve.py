@@ -51,11 +51,13 @@ Example:
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import obs
 from .device import DeviceLike, resolve_device
 from .diffusion.ddim import ddim_sample, respaced_steps
 from .diffusion.ddpm import cfg_sample
@@ -67,6 +69,11 @@ from .tasks import TASKS
 from .tasks.base import Task, loaded_model, refine_solutions, select_best
 from .tasks.multi import merge_multi_config
 from .utils.checkpoint import load_checkpoint
+
+
+def _cuda_init(dev: torch.device) -> bool:
+    """Whether work on ``dev`` creates this process's CUDA context."""
+    return dev.type == "cuda" and not torch.cuda.is_initialized()
 
 
 def suggest_buckets(sizes: Sequence[int], max_buckets: int = 4, align: int = 64,
@@ -212,17 +219,20 @@ class Solver:
         (``tasks.multi.merge_multi_config``)."""
         mesh = kw.get("mesh")
         dev = resolve_device(mesh.device if isinstance(mesh, Mesh) else device)
-        ck = load_checkpoint(ckpt_dir, device=dev)
-        md = ck["metadata"]
-        config = dict(md.get("dataset_config") or {})
-        if task.startswith("multi_") and "subtask_configs" in md:
-            slot = task.split("_", 1)[1]
-            config.update(md["subtask_configs"].get(slot) or {})
-            merge_multi_config(config, md, slot)
-        config.update(dataset_config or {})
-        t = TASKS[task]
-        return cls(t, loaded_model(t, ck["params"], config, dev), ck["sched"], config, backend,
-                   buckets, **kw)
+        with obs.setup("load", path=str(ckpt_dir)):
+            with obs.setup("load.checkpoint", cuda_init=_cuda_init(dev)):
+                ck = load_checkpoint(ckpt_dir, device=dev)
+            md = ck["metadata"]
+            config = dict(md.get("dataset_config") or {})
+            if task.startswith("multi_") and "subtask_configs" in md:
+                slot = task.split("_", 1)[1]
+                config.update(md["subtask_configs"].get(slot) or {})
+                merge_multi_config(config, md, slot)
+            config.update(dataset_config or {})
+            t = TASKS[task]
+            with obs.setup("load.model"):
+                return cls(t, loaded_model(t, ck["params"], config, dev), ck["sched"], config,
+                           backend, buckets, **kw)
 
     @classmethod
     def from_torch_checkpoint(cls, pt_path: str, task: str, dataset_config: Dict,
@@ -233,11 +243,15 @@ class Solver:
         from .utils.torch_import import ddpm_from_torch
 
         dev = resolve_device(device)
-        state, _, sched, _ = ddpm_from_torch(pt_path, device=dev)
-        t = TASKS[task]
-        model = t.build_model(dataset_config)
-        model.load_state_dict(state, strict=True)
-        return cls(t, model.to(dev).eval(), sched, dataset_config, backend, buckets, **kw)
+        with obs.setup("load", path=str(pt_path)):
+            with obs.setup("load.checkpoint", cuda_init=_cuda_init(dev)):
+                state, _, sched, _ = ddpm_from_torch(pt_path, device=dev)
+            with obs.setup("load.model"):
+                t = TASKS[task]
+                model = t.build_model(dataset_config)
+                model.load_state_dict(state, strict=True)
+                return cls(t, model.to(dev).eval(), sched, dataset_config, backend, buckets,
+                           **kw)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets or ():
@@ -260,7 +274,6 @@ class Solver:
             for cfg in cfgs:
                 self.solve(np.zeros((b, self._C), np.float32), **cfg)
 
-    @torch.inference_mode()
     def solve(self, X: np.ndarray, omega=None, best_of: int = 1, seed: int = 0,
               sampler: str = "ddpm", n_steps: Optional[int] = None, eta: float = 0.0,
               renorm_steps: Optional[int] = None, _block: bool = True):
@@ -287,9 +300,29 @@ class Solver:
         _block: with False, return the (B, D) solutions on the device
           without waiting for them (the launches are asynchronous); a
           caller can issue several requests before it copies any result.
+
+        While ``obs`` records, the call leaves the spans ``solve`` and its
+        children (``obs.PARENT``); ``solve.wait``, on a card only, is the
+        host waiting for the device, and ``_block=False`` ends at
+        ``solve.launch``.
         """
-        out = self._solve(X, omega, best_of, seed, sampler, n_steps, eta, renorm_steps)
-        return out.cpu().numpy() if _block else out
+        tr = obs.request()
+        with torch.inference_mode():
+            out = self._solve(X, omega, best_of, seed, sampler, n_steps, eta, renorm_steps, tr)
+            if _block:
+                t = tr and tr.last_ns
+                if tr and out.is_cuda:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(out.device))
+                    done.synchronize()
+                    t = tr.span("solve.wait", t)
+                out = out.cpu().numpy()
+                obs.COUNTS.bytes_out += out.nbytes
+                if tr:
+                    tr.span("solve.copy", t, bytes=out.nbytes)
+        if tr:
+            tr.close()
+        return out
 
     @torch.inference_mode()
     def solve_chunked(self, X: np.ndarray, chunk_size: int = 512, seed: int = 0,
@@ -299,14 +332,22 @@ class Solver:
         ``solve`` calls do. Every chunk is issued before any result is
         copied to the host: CUDA launches are asynchronous, so the host
         prepares chunk j+1 while the card runs chunk j."""
-        pending = [self._solve(X[i:i + chunk_size], seed=seed + j, **kw)
-                   for j, i in enumerate(range(0, X.shape[0], chunk_size))]
-        return np.concatenate([p.cpu().numpy() for p in pending])
+        pending = []
+        for j, i in enumerate(range(0, X.shape[0], chunk_size)):
+            tr = obs.request()
+            pending.append(self._solve(X[i:i + chunk_size], seed=seed + j, tr=tr, **kw))
+            if tr:
+                tr.close()
+        out = np.concatenate([p.cpu().numpy() for p in pending])
+        obs.COUNTS.bytes_out += out.nbytes
+        return out
 
     def _solve(self, X, omega=None, best_of: int = 1, seed: int = 0, sampler: str = "ddpm",
                n_steps: Optional[int] = None, eta: float = 0.0,
-               renorm_steps: Optional[int] = None) -> torch.Tensor:
-        """The decoded (n, D) solutions on the device, not yet copied."""
+               renorm_steps: Optional[int] = None,
+               tr: Optional[obs.Request] = None) -> torch.Tensor:
+        """The decoded (n, D) solutions on the device, not yet copied; with
+        ``tr``, its spans from ``solve.stage`` to ``solve.launch``."""
         if sampler not in ("ddpm", "ddim"):
             raise ValueError(f"unknown sampler {sampler!r}; use 'ddpm' or 'ddim'")
         if sampler == "ddpm" and (n_steps is not None or eta != 0.0 or renorm_steps is not None):
@@ -316,6 +357,7 @@ class Solver:
                   else np.asarray(omega, np.float32))
         if omegas.ndim != 1 or omegas.size == 0:
             raise ValueError(f"omega must be a scalar or a non-empty list, got {omega!r}")
+        t = tr and time.time_ns()
         X = np.asarray(X, np.float32)
         n = X.shape[0]
         b = self._bucket(n)
@@ -341,21 +383,36 @@ class Solver:
         if rows is not None:
             for name in ("cond", "cond_unnorm", "valid"):
                 host[name] = host[name][rows]
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        if self.graphs and self.device.type == "cuda" and b in (self.buckets or ()):
-            g = self._graphs.get(spec)
+        if tr:
+            tr.span("stage.host", t)
+        counts = obs.COUNTS
+        counts.requests += 1
+        counts.rows += n
+        counts.bucket_rows += b
+        graphed = self.graphs and self.device.type == "cuda" and b in (self.buckets or ())
+        g = self._graphs.get(spec) if graphed else None
+        inputs = g.inputs if g is not None else self._alloc(spec, host["valid"] is not None)
+        self._fill(inputs, host, seed, n, rows, tr)
+        t = tr and tr.span("solve.stage", tr.start_ns)
+        if not graphed:
+            counts.eager += 1
+            out, path = self._run(spec, inputs)[:n], "eager"
+        else:
+            path = "graph"
             if g is None:
-                g = self._graphs[spec] = self._capture(spec, host, gen, n, rows)
-            else:
-                self._fill(g.inputs, host, gen, n, rows)
+                g = self._graphs[spec] = self._capture(spec, inputs)
+                counts.captures += 1
+                path = "capture"
             g.graph.replay()
+            counts.replays += 1
             resblock.LAUNCHES += g.launches[0]
             mega.LAUNCHES += g.launches[1]
             # A copy, so the next replay cannot overwrite a pending result.
-            return g.out[:n].clone()
-        inputs = self._alloc(spec, host["valid"] is not None)
-        self._fill(inputs, host, gen, n, rows)
-        return self._run(spec, inputs)[:n]
+            out = g.out[:n].clone()
+        if tr:
+            tr.span("solve.launch", t)
+            tr.attrs.update(rows=n, bucket=b, path=path)
+        return out
 
     # -- the program and its inputs -----------------------------------------------
 
@@ -374,13 +431,15 @@ class Solver:
                        zeros(spec.candidates, b, self._columns(spec), self._D),
                        zeros(spec.candidates))
 
-    def _fill(self, inputs: _Inputs, host: Dict, gen: torch.Generator, n: int,
-              rows: Optional[slice] = None) -> None:
+    def _fill(self, inputs: _Inputs, host: Dict, seed: int, n: int,
+              rows: Optional[slice] = None, tr: Optional[obs.Request] = None) -> None:
         """Copy a request into ``inputs`` and draw its noise: candidate by
-        candidate, the n real rows from ``gen``; pad rows zero. On a mesh
-        (``rows``, the rank's rows of the padded batch) each candidate's
-        noise of all n rows is drawn, as without one, and the rank keeps
-        its own rows."""
+        candidate, the n real rows from a generator seeded with ``seed``;
+        pad rows zero. On a mesh (``rows``, the rank's rows of the padded
+        batch) each candidate's noise of all n rows is drawn, as without
+        one, and the rank keeps its own rows."""
+        t = tr and time.time_ns()
+        nbytes = 0
         for name in ("cond", "cond_unnorm", "valid", "omega"):
             dst = getattr(inputs, name)
             if dst is not None:
@@ -388,6 +447,11 @@ class Solver:
                 if dst.is_cuda:      # pinned, so the copy does not hold the host
                     src = src.pin_memory()
                 dst.copy_(src, non_blocking=dst.is_cuda)
+                nbytes += src.nbytes
+        obs.COUNTS.bytes_in += nbytes
+        if tr:
+            t = tr.span("stage.copy", t, bytes=nbytes)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         lo, hi = (0, n) if rows is None else (rows.start, max(rows.start, min(rows.stop, n)))
         inputs.noise[:, hi - lo:].zero_()
         for k in range(inputs.noise.shape[0]):
@@ -397,6 +461,8 @@ class Solver:
                 full = torch.empty((n, *inputs.noise.shape[2:]), dtype=inputs.noise.dtype,
                                    device=inputs.noise.device).normal_(generator=gen)
                 inputs.noise[k, :hi - lo].copy_(full[lo:hi])
+        if tr:
+            tr.span("stage.noise", t)
 
     def _run(self, spec: _Spec, inputs: _Inputs) -> torch.Tensor:
         """The program, on a mesh with its reductions over dp and the
@@ -440,32 +506,32 @@ class Solver:
                           init_noise=init, step_noise=rest, valid_mask=inputs.valid,
                           parameterization=self._param, skip_uncond=spec.skip)
 
-    def _capture(self, spec: _Spec, host: Dict, gen: torch.Generator, n: int,
-                 rows: Optional[slice] = None) -> _Graph:
-        """Capture ``spec``'s program as a CUDA graph on inputs that hold
-        this request. The program runs eagerly first, on a side stream
+    def _capture(self, spec: _Spec, inputs: _Inputs) -> _Graph:
+        """Capture ``spec``'s program as a CUDA graph on ``inputs``, which
+        hold this request. The program runs eagerly first, on a side stream
         (cuBLAS and the kernels' first-launch set-up happen outside the
         capture; three times where it refines, so that autograd's backward
         is warm too, as PyTorch's whole-network capture recipe does), and
         those launches count. Launches recorded during the
         capture do not run, so the wrappers keep them out of ``LAUNCHES``;
         their number is added per replay instead. On a mesh the graph
-        captures the program's collectives too."""
-        inputs = self._alloc(spec, masked=True)
-        self._fill(inputs, host, gen, n, rows)
+        captures the program's collectives too. Recorded as the set-up span
+        ``capture``, with children ``capture.eager`` and ``capture.graph``."""
         dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(3 if spec.refine_iters > 0 else 1):
-                self._run(spec, inputs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = (resblock.CAPTURED, mega.CAPTURED)
-        try:
-            with torch.cuda.graph(graph):
-                out = self._run(spec, inputs)
-        except Exception as e:
-            raise RuntimeError(f"CUDA graph capture failed for {spec}: {e}") from e
+        with obs.setup("capture", bucket=spec.bucket, sampler=spec.sampler):
+            with obs.setup("capture.eager"):
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    for _ in range(3 if spec.refine_iters > 0 else 1):
+                        self._run(spec, inputs)
+                torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = (resblock.CAPTURED, mega.CAPTURED)
+            try:
+                with obs.setup("capture.graph"), torch.cuda.graph(graph):
+                    out = self._run(spec, inputs)
+            except Exception as e:
+                raise RuntimeError(f"CUDA graph capture failed for {spec}: {e}") from e
         return _Graph(graph, inputs, out,
                       (resblock.CAPTURED - before[0], mega.CAPTURED - before[1]))
