@@ -89,7 +89,7 @@ def ddim_sample(
     for i, step in enumerate(steps):
         at, ap = a_t[i], a_prev[i]
         t_norm = torch.full((1,), int(step), dtype=dtype, device=dev) / T
-        eps = net_cfg(y, t_norm)
+        eps = net_cfg(y, t_norm, (int(step), T))
         if parameterization == "x0":
             eps = (y - torch.sqrt(at) * eps) / torch.sqrt(1.0 - at)
         elif parameterization == "v":

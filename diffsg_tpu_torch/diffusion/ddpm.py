@@ -141,34 +141,46 @@ def masked_mean_var(y: torch.Tensor, valid_mask: Optional[torch.Tensor] = None
 
 def cfg_net(apply_fn: ApplyFn, cond: torch.Tensor, omega: Omega, skip_uncond: bool,
             compute_dtype: Optional[torch.dtype] = None
-            ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """``net_cfg(y_t, t_norm)``: the CFG-combined denoiser output.
+            ) -> Callable[[torch.Tensor, torch.Tensor, Tuple[int, int]], torch.Tensor]:
+    """``net_cfg(y_t, t_norm, step)``: the CFG-combined denoiser output at
+    the sampler's step ``(i, T)``, ``t_norm`` being ``i / T``.
 
     The two CFG passes are folded into one forward of 2B rows (rows [0:B]
     unconditional, [B:2B] conditional) and combined as
     ``(1 + omega) eps_cond - omega eps_uncond``; with ``skip_uncond`` only
     the conditional half runs. With ``compute_dtype`` the forward's inputs
     are cast to it and its output back to ``cond``'s type.
+
+    An ``apply_fn`` with a ``prepare(cond, cond_mask)`` method (the fused
+    backend's, ``models.unet1d_fused.FusedApplyFn``) is handed the fixed
+    condition and mask once, here, and each step runs the forward it
+    returned, keyed by ``step``; any other is called once a step.
     """
     B, dtype, dev = cond.shape[0], cond.dtype, cond.device
+    if skip_uncond:
+        c, m = cond, torch.ones((B, 1), dtype=dtype, device=dev)
+    else:
+        c = torch.cat([cond, cond], dim=0)
+        m = torch.cat([torch.zeros((B, 1), dtype=dtype, device=dev),
+                       torch.ones((B, 1), dtype=dtype, device=dev)], dim=0)
+    prepare = getattr(apply_fn, "prepare", None) if compute_dtype is None else None
+    prepared = prepare(c, m) if prepare is not None else None
 
-    def forward(y, t_norm, c, m):
+    def forward(y, t_norm, step):
+        if prepared is not None:
+            return prepared(y, t_norm, step)
         if compute_dtype is None:
             return apply_fn(y, t_norm, c, m)
         cd = compute_dtype
         return apply_fn(y.to(cd), t_norm.to(cd), c.to(cd), m.to(cd)).to(dtype)
 
     if skip_uncond:
-        mask1 = torch.ones((B, 1), dtype=dtype, device=dev)
-        return lambda y_t, t_norm: forward(y_t, t_norm, cond, mask1)
-    cond2 = torch.cat([cond, cond], dim=0)
-    mask2 = torch.cat([torch.zeros((B, 1), dtype=dtype, device=dev),
-                       torch.ones((B, 1), dtype=dtype, device=dev)], dim=0)
+        return forward
 
     w_cond = 1.0 + omega
 
-    def net_cfg(y_t, t_norm):
-        eps2 = forward(torch.cat([y_t, y_t], dim=0), t_norm, cond2, mask2)
+    def net_cfg(y_t, t_norm, step):
+        eps2 = forward(torch.cat([y_t, y_t], dim=0), t_norm, step)
         return w_cond * eps2[B:] - omega * eps2[:B]
     return net_cfg
 
@@ -263,7 +275,7 @@ def cfg_sample(
     ys, epss = [], []
     for s, i in enumerate(range(T - 1, -1, -1)):
         t_norm = torch.full((1,), i, dtype=dtype, device=dev) / T
-        eps = net_cfg(y, t_norm)
+        eps = net_cfg(y, t_norm, (i, T))
         if parameterization == "x0":
             eps = (y - sched.sqrt_alphas_cumprod[i] * eps) / sched.sqrt_one_minus_alphas_cumprod[i]
         elif parameterization == "v":

@@ -6,7 +6,10 @@ stay in PyTorch as the JAX package left them to XLA: the time MLP (at the
 batch of ``t``, 1 in the sampler), the feature projection, the resamples,
 the skip concats, the final head, and each block's time and condition
 projections ``t_proj = swish(t_emb) @ W_t + b_t`` and
-``c_proj = swish(cond * mask) @ W_c + b_c``.
+``c_proj = swish(cond * mask) @ W_c + b_c``. Neither projection depends on
+the state ``y``: the sampler's prepared path (:class:`FusedApplyFn`)
+computes the condition projections once a sampler call and keeps the time
+projections of every step in a table.
 
 Use ``unet_apply_fn(model, backend="fused")`` for the sampler's
 ``apply_fn(y, t, cond, cond_mask)``; ``backend="mega"`` runs the whole
@@ -20,38 +23,56 @@ shared-prefix CFG-pair forward (:func:`unet_forward_cfg_pair`, JAX's
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional
+import itertools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from .unet1d import UNet1D, swish
+from .. import obs
+from .unet1d import ResidualBlock, UNet1D, swish
 from ..ops.mega import pack_params, unet_forward_mega
 from ..ops.resblock import fused_residual_block, resblock_params_tuple
 from ..parallel.mesh import sharded_names
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+# projections(k, res) -> (t_proj, c_proj) of the k-th residual block
+Projections = Callable[[int, ResidualBlock], Tuple[torch.Tensor, torch.Tensor]]
+
+#: Prepared denoiser steps (``FusedApplyFn.prepare``) recorded into CUDA
+#: graphs: they do not run then, so they are not in
+#: ``obs.COUNTS.hoisted_steps``; whoever replays the graph adds them.
+HOISTED_CAPTURED = 0
 
 
-def unet_forward_fused(model: UNet1D, y: torch.Tensor, t: torch.Tensor,
-                       cond: torch.Tensor, cond_mask: torch.Tensor) -> torch.Tensor:
-    """Full UNet1D forward with fused residual blocks. float32 only, as the
-    JAX kernel (``pallas_kernels.py:67`` refuses bfloat16). Raises on attention
-    nets, as ``unet1d_pallas.py:75-78`` does, and on tp-split weights."""
+def _check_fused(model: UNet1D, **inputs: torch.Tensor) -> None:
+    """Raise on what the fused kernel does not take: attention nets, as
+    ``unet1d_pallas.py:75-78`` does, tp-split weights, and any type but
+    float32 (``pallas_kernels.py:67`` refuses bfloat16)."""
     if any(model.is_attn) or model.middle_attn:
         raise NotImplementedError("the fused backend fuses no attention blocks; use the "
                                   "'plain' backend for attention nets (no shipped net has them)")
     if sharded_names(model):
         raise ValueError("the fused kernel takes whole weight matrices, not tp column slices")
-    for name, a in (("y", y), ("t", t), ("cond", cond), ("cond_mask", cond_mask),
-                    ("the weights", model.feature_proj.kernel)):
+    for name, a in (*inputs.items(), ("the weights", model.feature_proj.kernel)):
         if a.dtype != torch.float32:
             raise TypeError(f"the fused backend computes in float32 only; {name} is {a.dtype}")
-    st = swish(model.time_emb(t))          # (Bt, 4*proj), shared by every block
-    sc = swish(cond * cond_mask)           # (B, cond_dim)
+
+
+def _residual_blocks(model: UNet1D) -> List[ResidualBlock]:
+    """The net's residual blocks in the order its forward runs them."""
+    return ([m.res for kind, m in zip(model.down_kinds, model.down) if kind == "block"]
+            + [model.middle.res1, model.middle.res2]
+            + [m.res for kind, m in zip(model.up_kinds, model.up) if kind == "block"])
+
+
+def _forward_blocks(model: UNet1D, y: torch.Tensor, projections: Projections) -> torch.Tensor:
+    """The forward with fused residual blocks; block k (in
+    :func:`_residual_blocks`' order) takes ``projections(k, res)``, its
+    ``(t_proj, c_proj)``."""
+    ks = itertools.count()
 
     def run_block(res, x: torch.Tensor) -> torch.Tensor:
-        return fused_residual_block(x, res.time_emb(st), res.cond_emb(sc),
-                                    *resblock_params_tuple(res))
+        return fused_residual_block(x, *projections(next(ks), res), *resblock_params_tuple(res))
 
     x = model.feature_proj(y)
     h = [x]
@@ -69,6 +90,126 @@ def unet_forward_fused(model: UNet1D, y: torch.Tensor, t: torch.Tensor,
             x = run_block(m.res, torch.cat([x, h.pop()], dim=1))
 
     return model.final(swish(model.norm(x)))
+
+
+def unet_forward_fused(model: UNet1D, y: torch.Tensor, t: torch.Tensor,
+                       cond: torch.Tensor, cond_mask: torch.Tensor) -> torch.Tensor:
+    """Full UNet1D forward with fused residual blocks. float32 only, as the
+    JAX kernel. Raises on attention nets and on tp-split weights."""
+    _check_fused(model, y=y, t=t, cond=cond, cond_mask=cond_mask)
+    st = swish(model.time_emb(t))          # (Bt, 4*proj), shared by every block
+    sc = swish(cond * cond_mask)           # (B, cond_dim)
+    return _forward_blocks(model, y, lambda k, res: (res.time_emb(st), res.cond_emb(sc)))
+
+
+class FusedApplyFn:
+    """The fused backend's ``apply_fn(y, t, cond, cond_mask)``
+    (:func:`unet_forward_fused`), with a prepared path for the sampler.
+
+    Within one sampler call the condition and mask are fixed, and a step's
+    time depends only on its index. :meth:`prepare` takes the condition
+    and mask once, computes every block's condition projection
+    ``res.cond_emb(swish(cond * cond_mask))`` (a prologue), and returns
+    ``step(y, t_norm, key)``, the forward at one step. ``key`` is the
+    step's ``(i, T)``, and ``t_norm`` must be the sampler's
+    ``torch.full((1,), i) / T``. The step reads each block's time
+    projection ``res.time_emb(swish(model.time_emb(t_norm)))`` from a table
+    kept on this object for every ``key`` seen. The entry is computed from
+    ``t_norm`` on the step that first meets ``key`` outside a CUDA-graph
+    capture, by the same calls as the per-call forward. Inside a capture a
+    missing step computes its time inline and is not stored. The
+    arithmetic is the per-call forward's, and so are the answers, bit for
+    bit.
+
+    The table is keyed on the time weights' storage and version counters
+    (storage alone for inference tensors, which count no versions; the
+    samplers' callers build such weights for one evaluation).
+    :meth:`refresh` recomputes a stale table in place, so a captured graph
+    that reads its entries reads the new values; ``prepare`` calls it, and
+    so must whoever replays such a graph after the weights may have
+    changed. Steps that read the prologue and the table are counted in
+    ``obs.COUNTS.hoisted_steps``, or, inside a capture, in
+    :data:`HOISTED_CAPTURED` for the replays to add.
+
+    ``pad_cond`` (a multi-task face's ``_CondAdapter.pad_cond``) maps the
+    condition before either path."""
+
+    def __init__(self, model: UNet1D,
+                 pad_cond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+        self.model = model
+        self.pad_cond = pad_cond
+        self._blocks = _residual_blocks(model)
+        self._time_params = [*model.time_emb.parameters(),
+                             *(p for res in self._blocks for p in res.time_emb.parameters())]
+        self._table: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+        self._key = self._weights_key()
+
+    def __call__(self, y, t, cond, cond_mask):
+        if self.pad_cond is not None:
+            cond = self.pad_cond(cond)
+        return unet_forward_fused(self.model, y, t, cond, cond_mask)
+
+    def _weights_key(self) -> tuple:
+        # Inference tensors (weights loaded under inference mode) keep no
+        # version counter: their storage alone keys them.
+        return tuple((p.data_ptr(), 0 if p.is_inference() else p._version)
+                     for p in self._time_params)
+
+    def _time_projections(self, t_norm: torch.Tensor) -> List[torch.Tensor]:
+        st = swish(self.model.time_emb(t_norm))
+        return [res.time_emb(st) for res in self._blocks]
+
+    def refresh(self) -> bool:
+        """Whether the table holds the current weights' values: a stale one
+        is recomputed in place, from each key's ``t_norm``, outside a
+        capture; inside one it stays stale and this returns False."""
+        key = self._weights_key()
+        if key == self._key:
+            return True
+        if _capturing(self._time_params[0]):
+            return False
+        dev = self._time_params[0].device
+        # Entries made under a Solver's inference mode take in-place updates
+        # only inside one.
+        with torch.inference_mode():
+            for (i, T), rows in self._table.items():
+                t_norm = torch.full((1,), i, dtype=torch.float32, device=dev) / T
+                for row, new in zip(rows, self._time_projections(t_norm)):
+                    row.copy_(new)
+        self._key = key
+        return True
+
+    def prepare(self, cond: torch.Tensor, cond_mask: torch.Tensor
+                ) -> Callable[[torch.Tensor, torch.Tensor, Tuple[int, int]], torch.Tensor]:
+        """The condition prologue; returns ``step(y, t_norm, key)``."""
+        if self.pad_cond is not None:
+            cond = self.pad_cond(cond)
+        _check_fused(self.model, cond=cond, cond_mask=cond_mask)
+        sc = swish(cond * cond_mask)
+        c_projs = [res.cond_emb(sc) for res in self._blocks]
+        current = self.refresh()
+
+        def step(y: torch.Tensor, t_norm: torch.Tensor, key: Tuple[int, int]) -> torch.Tensor:
+            global HOISTED_CAPTURED
+            _check_fused(self.model, y=y, t=t_norm)
+            capturing = _capturing(y)
+            t_projs = self._table.get(key) if current else None
+            if t_projs is None and current and not capturing:
+                t_projs = self._table[key] = self._time_projections(t_norm)
+            if t_projs is None:
+                st = swish(self.model.time_emb(t_norm))
+                return _forward_blocks(self.model, y,
+                                       lambda k, res: (res.time_emb(st), c_projs[k]))
+            if capturing:
+                HOISTED_CAPTURED += 1
+            else:
+                obs.COUNTS.hoisted_steps += 1
+            return _forward_blocks(self.model, y, lambda k, res: (t_projs[k], c_projs[k]))
+        return step
+
+
+def _capturing(a: torch.Tensor) -> bool:
+    return a.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
 def unet_forward_cfg_pair(model: UNet1D, y: torch.Tensor, t: torch.Tensor,
@@ -176,7 +317,9 @@ def unet_apply_fn(model: UNet1D, backend: str = "fused",
     returns bfloat16, as flax does with bfloat16 params and inputs. A
     bfloat16 copy of the model passed as ``model`` gives the same: "mega"
     then follows its inputs' type and returns bfloat16 for bfloat16 inputs.
-    "fused" raises on bfloat16, as the JAX kernel does.
+    "fused" raises on bfloat16, as the JAX kernel does. Its apply_fn is a
+    :class:`FusedApplyFn`, whose ``prepare`` the samplers use to compute the
+    step-invariant projections once (``diffusion.ddpm.cfg_net``).
 
     A multi-task face's condition adapter (``tasks.multi._CondAdapter``,
     the module with ``inner`` and ``pad_cond``) runs as ``pad_cond`` and
@@ -184,6 +327,9 @@ def unet_apply_fn(model: UNet1D, backend: str = "fused",
     """
     if hasattr(model, "pad_cond"):
         inner = unet_apply_fn(model.inner, backend, compute_dtype)
+        if isinstance(inner, FusedApplyFn):
+            inner.pad_cond = model.pad_cond
+            return inner
         return lambda y, t, c, m: inner(y, t, model.pad_cond(c), m)
     if backend == "mega":
         packed = pack_params(model, compute_dtype)
@@ -201,7 +347,7 @@ def unet_apply_fn(model: UNet1D, backend: str = "fused",
         if compute_dtype is not None:
             raise TypeError(f"the fused backend computes in float32 only, as the JAX kernel "
                             f"does; compute_dtype {compute_dtype} is taken by 'mega' and 'plain'")
-        return lambda y, t, c, m: unet_forward_fused(model, y, t, c, m)
+        return FusedApplyFn(model)
     if backend == "pair":
         if compute_dtype is not None:
             raise TypeError(f"the pair backend computes in the model's type; compute_dtype "

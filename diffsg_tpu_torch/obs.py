@@ -71,7 +71,7 @@ class Counters:
     """Totals of this process, from every Solver; plain integer adds."""
 
     __slots__ = ("requests", "rows", "bucket_rows", "replays", "captures", "eager", "bytes_in",
-                 "bytes_out")
+                 "bytes_out", "hoisted_steps")
 
     def __init__(self):
         for name in self.__slots__:
@@ -84,7 +84,10 @@ class Counters:
 #: (bucket, configuration), so a count that rises while serving means a
 #: per-request value reached the graphs' key; eager: programs run without a
 #: graph; bytes_in: request data copied into the program's inputs (pinned on
-#: a card); bytes_out: answers copied to the host.
+#: a card); bytes_out: answers copied to the host; hoisted_steps: denoiser
+#: steps that read the condition prologue and the time table of the fused
+#: backend's prepared path (``models.unet1d_fused.FusedApplyFn``), run
+#: eagerly or by a graph's replay.
 COUNTS = Counters()
 
 _ids = itertools.count(1)

@@ -62,6 +62,7 @@ from .device import DeviceLike, resolve_device
 from .diffusion.ddim import ddim_sample, respaced_steps
 from .diffusion.ddpm import cfg_sample
 from .diffusion.schedule import Schedule
+from .models import unet1d_fused
 from .models.unet1d_fused import unet_apply_fn
 from .ops import mega, resblock
 from .parallel.mesh import Mesh, all_gather_rows, shard_params
@@ -125,6 +126,7 @@ class _Graph(NamedTuple):
     inputs: _Inputs
     out: torch.Tensor
     launches: Tuple[int, int]    # resblock and mega launches per replay
+    hoisted: int                 # prepared denoiser steps per replay
 
 
 class Solver:
@@ -403,8 +405,11 @@ class Solver:
                 g = self._graphs[spec] = self._capture(spec, inputs)
                 counts.captures += 1
                 path = "capture"
+            elif g.hoisted:
+                self._apply.refresh()   # the graph reads the time table
             g.graph.replay()
             counts.replays += 1
+            counts.hoisted_steps += g.hoisted
             resblock.LAUNCHES += g.launches[0]
             mega.LAUNCHES += g.launches[1]
             # A copy, so the next replay cannot overwrite a pending result.
@@ -514,7 +519,8 @@ class Solver:
         is warm too, as PyTorch's whole-network capture recipe does), and
         those launches count. Launches recorded during the
         capture do not run, so the wrappers keep them out of ``LAUNCHES``;
-        their number is added per replay instead. On a mesh the graph
+        their number is added per replay instead, as are the prepared
+        denoiser steps (``obs.COUNTS.hoisted_steps``). On a mesh the graph
         captures the program's collectives too. Recorded as the set-up span
         ``capture``, with children ``capture.eager`` and ``capture.graph``."""
         dev = self.device
@@ -527,11 +533,12 @@ class Solver:
                         self._run(spec, inputs)
                 torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            before = (resblock.CAPTURED, mega.CAPTURED)
+            before = (resblock.CAPTURED, mega.CAPTURED, unet1d_fused.HOISTED_CAPTURED)
             try:
                 with obs.setup("capture.graph"), torch.cuda.graph(graph):
                     out = self._run(spec, inputs)
             except Exception as e:
                 raise RuntimeError(f"CUDA graph capture failed for {spec}: {e}") from e
         return _Graph(graph, inputs, out,
-                      (resblock.CAPTURED - before[0], mega.CAPTURED - before[1]))
+                      (resblock.CAPTURED - before[0], mega.CAPTURED - before[1]),
+                      unet1d_fused.HOISTED_CAPTURED - before[2])

@@ -110,6 +110,7 @@ def test_off_by_default_counters_advance(solvers):
     d = {k: after[k] - before[k] for k in after}
     assert d["requests"] == 2 and d["rows"] == 25 and d["bucket_rows"] == 8 + 64
     assert d["eager"] == 2 and d["replays"] == 0 and d["captures"] == 0
+    assert d["hoisted_steps"] == 0      # mega: no prepared path
     assert d["bytes_out"] == a.nbytes + b.nbytes
     assert d["bytes_in"] == 4 * ((8 + 64) * (2 * solver._C + 1) + 2)
     assert 100.0 * (d["bucket_rows"] - d["rows"]) / d["bucket_rows"] == pytest.approx(
@@ -118,6 +119,18 @@ def test_off_by_default_counters_advance(solvers):
                                                                     mega.LAUNCHES)
     assert (after["resblock_captured"], after["mega_captured"]) == (resblock.CAPTURED,
                                                                     mega.CAPTURED)
+
+
+def test_eager_fused_solves_count_hoisted_steps(solvers):
+    """On the CPU's eager path each MSR request (fused, DDPM T=100) runs its
+    100 denoiser steps on the prepared path, whatever its bucket."""
+    solver = solvers["msr"]
+    before = obs.counters()
+    for n in (3, 40):
+        solver.solve(conditions(solver, n))
+    d = {k: obs.counters()[k] - before[k] for k in before}
+    assert d["hoisted_steps"] == 2 * solver.sched.T == 200
+    assert d["eager"] == 2 and d["replays"] == 0
 
 
 def test_profiler_turns_recording_on(solvers):
@@ -269,3 +282,42 @@ def test_cuda_graph_path_spans(card, net):
     assert setup["capture.eager"].parent == setup["capture.graph"].parent == cap.id
     launch = reqs[0]["solve.launch"]
     assert launch.start_ns <= cap.start_ns <= cap.end_ns <= launch.end_ns
+
+
+@pytest.mark.cuda
+def test_cuda_graph_hoisted_steps(card):
+    """The fused backend's prepared path on the graph path: an MSR Solver
+    (buckets 8 and 64) answers bit for bit as one whose apply_fn hides
+    ``prepare`` (the per-call forward in the graphs); after warm-up each
+    request adds its 2,700 resblock launches and 100 hoisted steps. An NU
+    Solver (mega) adds no hoisted step."""
+    ck, task, backend, kw = NETS["msr"]
+    solver = Solver.from_checkpoint(str(REPO / "ckpts" / ck), task=task, backend=backend,
+                                    buckets=[8, 64])
+    per_call = Solver.from_checkpoint(str(REPO / "ckpts" / ck), task=task, backend=backend,
+                                      buckets=[8, 64])
+    fused = per_call._apply
+    per_call._apply = lambda y, t, c, m: fused(y, t, c, m)
+    for s in (solver, per_call):
+        s.warmup()
+    sizes = (5, 8, 40, 64)
+    before = obs.counters()
+    got = [solver.solve(conditions(solver, n, n), seed=n) for n in sizes]
+    after = obs.counters()
+    want = [per_call.solve(conditions(solver, n, n), seed=n) for n in sizes]
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    assert after["replays"] - before["replays"] == len(sizes)
+    assert after["resblock_launches"] - before["resblock_launches"] == 2700 * len(sizes)
+    assert after["hoisted_steps"] - before["hoisted_steps"] == 100 * len(sizes)
+    assert after["captures"] == before["captures"]
+
+    ck, task, backend, kw = NETS["nu"]
+    nu = Solver.from_checkpoint(str(REPO / "ckpts" / ck), task=task, backend=backend,
+                                buckets=[8, 64])
+    before = obs.counters()
+    for n in (5, 40):
+        nu.solve(conditions(nu, n), **kw)
+    after = obs.counters()
+    assert after["hoisted_steps"] == before["hoisted_steps"]
+    assert after["mega_launches"] - before["mega_launches"] == 2 * 2 * 3

@@ -1,7 +1,10 @@
 """The port's CFG-DDPM sampler on the MSR-3c T=100 checkpoint, against the
 JAX package's, with the same injected noise, in float32 and with the
-denoiser forward in bfloat16 (``compute_dtype``)."""
+denoiser forward in bfloat16 (``compute_dtype``); and the fused backend's
+prepared path (the condition prologue and the time table) against its
+per-call forward."""
 
+import copy
 import pathlib
 
 import numpy as np
@@ -18,8 +21,9 @@ from diffsg_tpu.models import unet_msr as jax_unet_msr
 from diffsg_tpu.models.unet1d_pallas import unet_apply_fn as jax_apply_fn
 from diffsg_tpu.ops import msr_decode as jax_msr_decode, msr_sum_rate as jax_sum_rate
 from diffsg_tpu.utils import load_checkpoint as jax_load_checkpoint
+from diffsg_tpu_torch import obs
 from diffsg_tpu_torch.baselines import waterfilling
-from diffsg_tpu_torch.diffusion import cfg_sample, schedule_from_betas
+from diffsg_tpu_torch.diffusion import cfg_sample, ddim_sample, schedule_from_betas
 from diffsg_tpu_torch.models import unet_apply_fn, unet_msr
 from diffsg_tpu_torch.ops import msr_decode, msr_sum_rate
 from diffsg_tpu_torch.utils import load_checkpoint, params_from_jax
@@ -160,3 +164,77 @@ def test_compute_dtype_bf16_mega_matches_jax(both):
     np.testing.assert_allclose(tb, jb, rtol=0, atol=1e-3 * scale)
     jerr, terr = np.abs(jb - jf).max(), np.abs(tb - jf).max()
     assert 0.25 * jerr <= terr <= 2 * jerr, (terr, jerr)
+
+
+def _per_call(apply_fn):
+    """``apply_fn`` without its ``prepare``: the samplers then call it once a
+    step, as they call every other backend."""
+    return lambda y, t, c, m: apply_fn(y, t, c, m)
+
+
+def _sample(sampler, apply_fn, sched, cond, init, steps, valid, skip):
+    kw = dict(init_noise=init, valid_mask=valid, skip_uncond=skip)
+    if sampler == "ddim":
+        return ddim_sample(apply_fn, sched, cond, 500.0, 3, n_steps=10, **kw)
+    return cfg_sample(apply_fn, sched, cond, 500.0, 3, step_noise=steps, **kw)
+
+
+@pytest.mark.parametrize("sampler,B,masked,skip", [
+    ("ddpm", 7, False, False), ("ddpm", 8, True, False), ("ddpm", 5, False, True),
+    ("ddim", 6, True, False), ("ddim", 9, False, True)])
+def test_fused_prepared_path_equals_per_call(both, sampler, B, masked, skip):
+    """``cfg_sample`` and ``ddim_sample`` through the fused backend's prepared
+    path (``FusedApplyFn.prepare``: the condition projections once a call,
+    the time projections from a table) return the per-call path's answer bit
+    for bit: on the call that fills the table and on the next, which reads
+    it. Every step of both counts in ``hoisted_steps``."""
+    _, sched, model, _ = both
+    cond, init, steps = (torch.from_numpy(a) for a in _noise(B, 100, seed=B))
+    valid = None
+    if masked:
+        valid = (torch.arange(B) < B - 2).to(torch.float32)[:, None]
+        cond[B - 2:] = cond[B - 3]
+    fused = unet_apply_fn(model, "fused")
+    ref = _sample(sampler, _per_call(fused), sched, cond, init, steps, valid, skip)
+    before = obs.COUNTS.hoisted_steps
+    for _ in range(2):
+        got = _sample(sampler, fused, sched, cond, init, steps, valid, skip)
+        assert torch.equal(got, ref)
+    n = 10 if sampler == "ddim" else 100
+    assert obs.COUNTS.hoisted_steps - before == 2 * n
+    assert len(fused._table) == n
+
+
+def test_fused_time_table_follows_weight_updates(both):
+    """An in-place update of a block's ``time_emb`` kernel, then of the time
+    MLP's, reaches the next sample through the prepared path: the time table
+    is recomputed, not read stale."""
+    _, sched, model, _ = both
+    model = copy.deepcopy(model)
+    cond, init, steps = (torch.from_numpy(a) for a in _noise(6, 100, seed=11))
+    fused = unet_apply_fn(model, "fused")
+    first = _sample("ddim", fused, sched, cond, init, steps, None, False)
+    last = first
+    for p in (model.down[0].res.time_emb.kernel, model.time_emb.lin1.bias):
+        with torch.no_grad():
+            p.mul_(1.5)
+        got = _sample("ddim", fused, sched, cond, init, steps, None, False)
+        assert torch.equal(got, _sample("ddim", _per_call(fused), sched, cond, init, steps,
+                                        None, False))
+        assert not torch.equal(got, last)
+        last = got
+
+
+def test_fused_prepared_path_on_inference_weights(both):
+    """Weights made under inference mode (as ``tasks.base.sample_solutions``
+    loads them) carry no version counter; the prepared path keys them by
+    storage and answers as the per-call path does."""
+    _, sched, model, _ = both
+    cond, init, steps = (torch.from_numpy(a) for a in _noise(4, 100, seed=12))
+    with torch.inference_mode():
+        frozen = copy.deepcopy(model)
+        assert frozen.time_emb.lin1.kernel.is_inference()
+        fused = unet_apply_fn(frozen, "fused")
+        got = _sample("ddim", fused, sched, cond, init, steps, None, False)
+        assert torch.equal(got, _sample("ddim", _per_call(fused), sched, cond, init, steps,
+                                        None, False))
