@@ -10,6 +10,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .sampler import segment_min_max_scale
+
 
 def conditions(rng: np.random.Generator, n: int, task: Dict) -> np.ndarray:
     """(n, M) scaled gains, uniform on [0, 1)."""
@@ -19,13 +21,7 @@ def conditions(rng: np.random.Generator, n: int, task: Dict) -> np.ndarray:
 def decode(Y: torch.Tensor, seg: torch.Tensor, n_seg: int, task: Dict) -> torch.Tensor:
     """Powers: the request's global min-max scaling (over all its rows and
     columns), then a per-row softmax times the budget W."""
-    big = torch.finfo(Y.dtype).max
-    mn = torch.full((n_seg,), big, dtype=Y.dtype, device=Y.device).scatter_reduce(
-        0, seg, Y.min(dim=1).values, "amin")
-    mx = torch.full((n_seg,), -big, dtype=Y.dtype, device=Y.device).scatter_reduce(
-        0, seg, Y.max(dim=1).values, "amax")
-    Yn = (Y - mn[seg][:, None]) / (mx - mn)[seg][:, None]
-    return task["W"] * torch.softmax(Yn, dim=1)
+    return task["W"] * torch.softmax(segment_min_max_scale(Y, seg, n_seg), dim=1)
 
 
 def align(served: np.ndarray, ref: np.ndarray) -> tuple:

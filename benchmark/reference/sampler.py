@@ -17,6 +17,18 @@ The published method, as the served program states it:
   / sqrt(a_t)``, ``y <- sqrt(a_prev) y0 + sqrt(1 - a_prev) eps``; the first
   ``clamp(n // 5, 1, 4)`` steps re-standardize.
 * The time is shown to the net as ``t / T``, at batch 1.
+* A net that predicts x0 or v (``config["sampler"]["parameterization"]``,
+  ``"eps"`` where absent) has its CFG-combined output turned into epsilon
+  before the step: x0: ``eps = (y - sqrt(abar_t) x0) / sqrt(1 - abar_t)``;
+  v: ``eps = sqrt(1 - abar_t) y + sqrt(abar_t) v``.
+
+A task module (``benchmark.reference.<task>``) gives ``conditions`` and
+``decode(y, seg, n_seg, task_config)``. It may also give ``embed(cond,
+task_config)``, the condition the net reads made from the request's (a
+multi-task face's ``[one-hot | payload | 0s]``: the unconditional pass
+zeroes the whole embedded row), and ``decode_with_x(y, X, seg, n_seg,
+task_config)``, a decoder that also reads the requests' conditions, which
+``solve`` then calls in place of ``decode``.
 """
 
 from __future__ import annotations
@@ -47,6 +59,19 @@ class Coefficients:
         self.remove_noise = f32(betas / np.sqrt(1.0 - abar))
         self.rsqrt_alpha = f32(np.sqrt(1.0 / alphas))
         self.noise_coeff = f32((1.0 - abar_prev) / (1.0 - abar))
+        self.sqrt_abar = f32(np.sqrt(abar))
+        self.sqrt_1m_abar = f32(np.sqrt(1.0 - abar))
+
+    def to_eps(self, out: torch.Tensor, y: torch.Tensor, i: int, parameterization: str
+               ) -> torch.Tensor:
+        """The net's output ``out`` at timestep ``i`` as epsilon."""
+        if parameterization == "eps":
+            return out
+        if parameterization == "x0":
+            return (y - self.sqrt_abar[i] * out) / self.sqrt_1m_abar[i]
+        if parameterization == "v":
+            return self.sqrt_1m_abar[i] * y + self.sqrt_abar[i] * out
+        raise ValueError(f"unknown parameterization {parameterization!r}")
 
 
 def segment_standardize(y: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
@@ -65,6 +90,17 @@ def segment_standardize(y: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch
     return (y - mean[seg][:, None]) / torch.sqrt(var)[seg][:, None]
 
 
+def segment_min_max_scale(Y: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """``Y`` (R, D) under its request's min-max scaling, taken over all of
+    the request's rows and columns."""
+    big = torch.finfo(Y.dtype).max
+    mn = torch.full((n_seg,), big, dtype=Y.dtype, device=Y.device).scatter_reduce(
+        0, seg, Y.min(dim=1).values, "amin")
+    mx = torch.full((n_seg,), -big, dtype=Y.dtype, device=Y.device).scatter_reduce(
+        0, seg, Y.max(dim=1).values, "amax")
+    return (Y - mn[seg][:, None]) / (mx - mn)[seg][:, None]
+
+
 def cfg_eps(net: UNet1D, y: torch.Tensor, t_norm: torch.Tensor, cond: torch.Tensor,
             omega: float) -> torch.Tensor:
     e_cond = net(y, t_norm, cond)
@@ -75,14 +111,15 @@ def cfg_eps(net: UNet1D, y: torch.Tensor, t_norm: torch.Tensor, cond: torch.Tens
 
 
 def ddpm(net: UNet1D, co: Coefficients, cond: torch.Tensor, omega: float,
-         noise: torch.Tensor, seg: torch.Tensor, n_seg: int, renorm_steps: int = 4) -> torch.Tensor:
+         noise: torch.Tensor, seg: torch.Tensor, n_seg: int, renorm_steps: int = 4,
+         parameterization: str = "eps") -> torch.Tensor:
     """Ancestral CFG sampling over all T steps. ``noise`` (R, T + 1, D):
     column 0 is y_T, column s + 1 the z of the s-th step (t = T - 1 - s)."""
     T = co.T
     y = noise[:, 0]
     for s, i in enumerate(range(T - 1, -1, -1)):
         t_norm = torch.full((1,), float(i), dtype=torch.float32, device=y.device) / T
-        eps = cfg_eps(net, y, t_norm, cond, omega)
+        eps = co.to_eps(cfg_eps(net, y, t_norm, cond, omega), y, i, parameterization)
         y = (y - co.remove_noise[i] * eps) * co.rsqrt_alpha[i]
         if i > 1:
             y = y + co.noise_coeff[i] * noise[:, s + 1]
@@ -97,7 +134,8 @@ def respaced(T: int, n: int) -> np.ndarray:
 
 
 def ddim(net: UNet1D, co: Coefficients, cond: torch.Tensor, omega: float, n_steps: int,
-         noise: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+         noise: torch.Tensor, seg: torch.Tensor, n_seg: int,
+         parameterization: str = "eps") -> torch.Tensor:
     """Deterministic (eta 0) DDIM over the respaced steps; ``noise`` (R, 1, D)
     is y_T."""
     steps = respaced(co.T, n_steps)
@@ -107,7 +145,7 @@ def ddim(net: UNet1D, co: Coefficients, cond: torch.Tensor, omega: float, n_step
         a_t = float(np.float32(co.abar[step]))
         a_prev = float(np.float32(co.abar[steps[k + 1]])) if k + 1 < len(steps) else 1.0
         t_norm = torch.full((1,), float(step), dtype=torch.float32, device=y.device) / co.T
-        eps = cfg_eps(net, y, t_norm, cond, omega)
+        eps = co.to_eps(cfg_eps(net, y, t_norm, cond, omega), y, step, parameterization)
         y0 = (y - np.sqrt(1.0 - a_t) * eps) / np.sqrt(a_t)
         y = np.sqrt(a_prev) * y0 + np.sqrt(1.0 - a_prev) * eps
         if k < renorm:
@@ -135,10 +173,15 @@ def solve(net: UNet1D, co: Coefficients, config: Dict, conds: Sequence[np.ndarra
                      for k, c in enumerate(conds)])
     cond = torch.as_tensor(np.concatenate(conds), dtype=torch.float32, device=dev)
     noise = torch.cat(list(noises))
-    s = config["sampler"]
-    if s["kind"] == "ddpm":
-        y = ddpm(net, co, cond, s["omega"], noise, seg, len(conds))
-    else:
-        y = ddim(net, co, cond, s["omega"], s["n_steps"], noise, seg, len(conds))
     task = importlib.import_module(f"benchmark.reference.{config['task']}")
-    return task.decode(y, seg, len(conds), config["task_config"]).cpu().numpy()
+    task_config, s = config["task_config"], config["sampler"]
+    net_cond = task.embed(cond, task_config) if hasattr(task, "embed") else cond
+    param = s.get("parameterization", "eps")
+    if s["kind"] == "ddpm":
+        y = ddpm(net, co, net_cond, s["omega"], noise, seg, len(conds), parameterization=param)
+    else:
+        y = ddim(net, co, net_cond, s["omega"], s["n_steps"], noise, seg, len(conds),
+                 parameterization=param)
+    if hasattr(task, "decode_with_x"):
+        return task.decode_with_x(y, cond, seg, len(conds), task_config).cpu().numpy()
+    return task.decode(y, seg, len(conds), task_config).cpu().numpy()

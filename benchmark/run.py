@@ -119,15 +119,26 @@ def card_info(device: torch.device) -> Dict:
 
 def check_program(solver, config: Dict) -> None:
     """The Solver runs what the configuration states: task, widths, number
-    of parameters, sampler and schedule length, dataset constants."""
-    m, model = config["model"], solver.model
-    got = {"input_dim": model.input_dim, "proj_dim": model.proj_dim, "cond_dim": model.cond_dim,
-           "dims": list(model.dims), "n_blocks": model.n_blocks,
-           "parameters": sum(p.numel() for p in model.parameters())}
+    of parameters, sampler, schedule length and prediction, dataset
+    constants. A multi-task face's model holds the checkpoint's net as
+    ``inner``, whose widths are the ones checked."""
+    m = config["model"]
+    net = getattr(solver.model, "inner", solver.model)
+    try:
+        got = {"input_dim": net.input_dim, "proj_dim": net.proj_dim, "cond_dim": net.cond_dim,
+               "dims": list(net.dims), "n_blocks": net.n_blocks,
+               "parameters": sum(p.numel() for p in net.parameters())}
+    except AttributeError as e:
+        raise RunError(f"the Solver's net {type(net).__name__} has no widths to check: {e}") from e
     if got != m:
         raise RunError(f"the checkpoint's net is {got}, the configuration states {m}")
     if solver.sched.T != config["sampler"]["T"]:
         raise RunError(f"the checkpoint's schedule has T={solver.sched.T}")
+    stated = config["sampler"].get("parameterization", "eps")
+    served = solver.config.get("parameterization", "eps")
+    if served != stated:
+        raise RunError(f"the checkpoint's net predicts {served!r}, the configuration states "
+                       f"{stated!r}")
     for k, v in config["task_config"].items():
         if solver.config.get(k) != v:
             raise RunError(f"the checkpoint's {k} is {solver.config.get(k)!r}, the "
@@ -142,6 +153,16 @@ def solve_kwargs(config: Dict) -> Dict:
     return kw
 
 
+def load_config(path: pathlib.Path) -> Dict:
+    """A configuration file, its checkpoint found in the checkout and held
+    to the file's SHA-256."""
+    config = load_json(path)
+    config["checkpoint"] = str(ROOT / config["checkpoint"])
+    if correct.checkpoint_sha256(config["checkpoint"]) != config["checkpoint_sha256"]:
+        raise RunError(f"{config['checkpoint']} is not the configuration's checkpoint")
+    return config
+
+
 def load_cell(workload: str, overrides: Optional[Dict] = None) -> types.SimpleNamespace:
     """The cell's entry, configuration, traffic (``overrides`` replaces
     traffic parameters: the CPU tests shrink a cell with it), limits and
@@ -150,10 +171,7 @@ def load_cell(workload: str, overrides: Optional[Dict] = None) -> types.SimpleNa
     cell = next((w for w in spec["workloads"] if w["name"] == workload), None)
     if cell is None:
         raise RunError(f"no workload {workload!r} in BENCHMARK.json")
-    config = load_json(BENCH / "configs" / f"{cell['config']}.json")
-    config["checkpoint"] = str(ROOT / config["checkpoint"])
-    if correct.checkpoint_sha256(config["checkpoint"]) != config["checkpoint_sha256"]:
-        raise RunError(f"{config['checkpoint']} is not the configuration's checkpoint")
+    config = load_config(BENCH / "configs" / f"{cell['config']}.json")
     return types.SimpleNamespace(
         spec=spec, cell=cell, config=config,
         traffic={**load_json(BENCH / "traffic" / f"{cell['traffic']}.json"), **(overrides or {})},

@@ -89,6 +89,7 @@ def test_control_fails_a_limit(cell):
     """The TF32 control fails at least one of the cell's limits on three
     seeds, where the program passes all of them."""
     limits = run.load_json(ROOT / "benchmark" / "limits" / f"{cell}.json")["limits"]
-    for line in control.readings(cell, [SEED, 3, 4], 10.0, torch.device("cpu"), SMALL[cell]):
+    c = run.load_cell(cell, SMALL[cell])
+    for line in control.readings(c, [SEED, 3, 4], 10.0, torch.device("cpu"))[:-1]:
         assert all(line["program"][k] <= limits[k] for k in limits), line
         assert any(line["tf32"][k] > limits[k] for k in limits), line

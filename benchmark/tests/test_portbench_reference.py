@@ -66,7 +66,8 @@ def test_reference_imports_nothing_of_the_program():
     import sys
 
     code = ("import sys, torch; from benchmark.harness import correct, traffic; "
-            "import benchmark.reference.msr, benchmark.reference.nu_direct; "
+            "import benchmark.reference.msr, benchmark.reference.nu_direct, "
+            "benchmark.reference.multi_msr80; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('diffsg_tpu_torch', 'diffsg_tpu', 'jax', 'jaxlib', 'flax')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
