@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from .ddpm import ApplyFn, Omega, cfg_net, masked_mean_var
 from .schedule import Schedule
 
@@ -94,6 +95,8 @@ def ddim_sample(
             eps = (y - torch.sqrt(at) * eps) / torch.sqrt(1.0 - at)
         elif parameterization == "v":
             eps = torch.sqrt(1.0 - at) * y + torch.sqrt(at) * eps
+        if parameterization != "eps":
+            obs.count("x0_steps", 1, y)
         # Predict y0, then step to the next alpha_bar of the sub-sequence.
         y0_pred = (y - torch.sqrt(1.0 - at) * eps) / torch.sqrt(at)
         sigma = eta * torch.sqrt((1.0 - ap) / (1.0 - at)) * torch.sqrt(1.0 - at / ap)

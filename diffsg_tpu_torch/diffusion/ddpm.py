@@ -34,6 +34,7 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from .. import obs
 from ..parallel.mesh import all_reduce_sum, current_mesh
 from .schedule import Schedule
 
@@ -237,7 +238,9 @@ def cfg_sample(
       renorm_steps: number of initial steps with batch re-standardization.
       valid_mask: optional (B, 1) 1.0/0.0 mask restricting the
         re-standardization statistics to the valid rows.
-      parameterization: "eps", "x0" or "v" — what the denoiser predicts.
+      parameterization: "eps", "x0" or "v" — what the denoiser predicts;
+        each step that turns x0 or v into epsilon counts in ``obs``'s
+        ``x0_steps``.
       skip_uncond: run only the conditional half (exact at omega == 0).
       compute_dtype: optional type of the denoiser forward: y, t, cond and
         mask are cast to it and the output back to ``cond``'s type, so the
@@ -280,6 +283,8 @@ def cfg_sample(
             eps = (y - sched.sqrt_alphas_cumprod[i] * eps) / sched.sqrt_one_minus_alphas_cumprod[i]
         elif parameterization == "v":
             eps = sched.sqrt_one_minus_alphas_cumprod[i] * y + sched.sqrt_alphas_cumprod[i] * eps
+        if parameterization != "eps":
+            obs.count("x0_steps", 1, y)
         if guidance_fn is not None:
             sq1m = sched.sqrt_one_minus_alphas_cumprod[i]
             x0_hat = (y - sq1m * eps) / sched.sqrt_alphas_cumprod[i]

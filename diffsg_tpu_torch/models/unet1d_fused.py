@@ -38,12 +38,6 @@ ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], tor
 # projections(k, res) -> (t_proj, c_proj) of the k-th residual block
 Projections = Callable[[int, ResidualBlock], Tuple[torch.Tensor, torch.Tensor]]
 
-#: Prepared denoiser steps (``FusedApplyFn.prepare``) recorded into CUDA
-#: graphs: they do not run then, so they are not in
-#: ``obs.COUNTS.hoisted_steps``; whoever replays the graph adds them.
-HOISTED_CAPTURED = 0
-
-
 def _check_fused(model: UNet1D, **inputs: torch.Tensor) -> None:
     """Raise on what the fused kernel does not take: attention nets, as
     ``unet1d_pallas.py:75-78`` does, tp-split weights, and any type but
@@ -128,8 +122,7 @@ class FusedApplyFn:
     that reads its entries reads the new values; ``prepare`` calls it, and
     so must whoever replays such a graph after the weights may have
     changed. Steps that read the prologue and the table are counted in
-    ``obs.COUNTS.hoisted_steps``, or, inside a capture, in
-    :data:`HOISTED_CAPTURED` for the replays to add.
+    ``obs``'s ``hoisted_steps`` (inside a capture, for the replays to add).
 
     ``pad_cond`` (a multi-task face's ``_CondAdapter.pad_cond``) maps the
     condition before either path."""
@@ -190,7 +183,6 @@ class FusedApplyFn:
         current = self.refresh()
 
         def step(y: torch.Tensor, t_norm: torch.Tensor, key: Tuple[int, int]) -> torch.Tensor:
-            global HOISTED_CAPTURED
             _check_fused(self.model, y=y, t=t_norm)
             capturing = _capturing(y)
             t_projs = self._table.get(key) if current else None
@@ -200,10 +192,7 @@ class FusedApplyFn:
                 st = swish(self.model.time_emb(t_norm))
                 return _forward_blocks(self.model, y,
                                        lambda k, res: (res.time_emb(st), c_projs[k]))
-            if capturing:
-                HOISTED_CAPTURED += 1
-            else:
-                obs.COUNTS.hoisted_steps += 1
+            obs.count("hoisted_steps", 1, y)
             return _forward_blocks(self.model, y, lambda k, res: (t_projs[k], c_projs[k]))
         return step
 

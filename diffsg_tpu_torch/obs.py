@@ -15,7 +15,9 @@ while a ``torch.profiler`` records. Off, a span costs one test of a flag,
 with no clock read and no allocation. They are kept in a ring of the newest
 :data:`RING`. Set-up spans (``load``, ``capture``, ``kernels.build``,
 ``kernels.load``) are few a Solver and always recorded, apart from the
-ring. Counters (:func:`counters`) are always on.
+ring. Counters (:func:`counters`) are always on; a count made while a CUDA
+graph is captured (:func:`count`) is kept for the replays to add
+(:func:`captured`, :func:`add`).
 
 Example (an operator's look at a serving process):
 
@@ -36,6 +38,7 @@ import threading
 import time
 from typing import Dict, Iterator, List, NamedTuple, Optional
 
+import torch
 from torch.autograd import profiler as _profiler
 
 #: Per-request spans kept (as plain tuples until read): the newest, in the
@@ -71,7 +74,7 @@ class Counters:
     """Totals of this process, from every Solver; plain integer adds."""
 
     __slots__ = ("requests", "rows", "bucket_rows", "replays", "captures", "eager", "bytes_in",
-                 "bytes_out", "hoisted_steps")
+                 "bytes_out", "hoisted_steps", "x0_steps", "decode_candidates")
 
     def __init__(self):
         for name in self.__slots__:
@@ -87,8 +90,15 @@ class Counters:
 #: a card); bytes_out: answers copied to the host; hoisted_steps: denoiser
 #: steps that read the condition prologue and the time table of the fused
 #: backend's prepared path (``models.unet1d_fused.FusedApplyFn``), run
-#: eagerly or by a graph's replay.
+#: eagerly or by a graph's replay; x0_steps: denoiser steps whose x0 or v
+#: output the sampler turned into epsilon; decode_candidates: candidate rows
+#: that a condition-reading decoder scored (``tasks.msr``'s families: 6
+#: softmax temperatures, and 5 simplex projections besides where it selects
+#: by projection).
 COUNTS = Counters()
+#: The same counts made while a CUDA graph was captured: that work runs at
+#: each replay, not then, so whoever replays the graph adds them.
+CAPTURED = Counters()
 
 _ids = itertools.count(1)
 _ring: collections.deque = collections.deque(maxlen=RING)
@@ -135,6 +145,10 @@ class Request:
         self._spans.append((name, start_ns, end, attrs))
         return end
 
+    def annotate(self, name: str, **attrs) -> None:
+        """Add attributes to the recorded span ``name``, outside its time."""
+        next(a for n, _, _, a in self._spans if n == name).update(attrs)
+
     def close(self) -> None:
         """End the root now, after its children, and keep the request's spans."""
         end, rid = time.time_ns(), self.id
@@ -176,6 +190,24 @@ def spans() -> List[Span]:
 def clear() -> None:
     """Empty the ring of request spans."""
     _ring.clear()
+
+
+def count(name: str, n: int, like: torch.Tensor) -> None:
+    """Add ``n`` to counter ``name``, or to :data:`CAPTURED` while the
+    current stream of ``like``'s device captures a CUDA graph."""
+    c = CAPTURED if like.is_cuda and torch.cuda.is_current_stream_capturing() else COUNTS
+    setattr(c, name, getattr(c, name) + n)
+
+
+def captured() -> Dict[str, int]:
+    """A snapshot of :data:`CAPTURED`."""
+    return {name: getattr(CAPTURED, name) for name in Counters.__slots__}
+
+
+def add(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (a graph's captured counts, at its replay) to :data:`COUNTS`."""
+    for name, n in counts.items():
+        setattr(COUNTS, name, getattr(COUNTS, name) + n)
 
 
 def counters() -> Dict[str, int]:

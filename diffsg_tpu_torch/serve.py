@@ -62,7 +62,6 @@ from .device import DeviceLike, resolve_device
 from .diffusion.ddim import ddim_sample, respaced_steps
 from .diffusion.ddpm import cfg_sample
 from .diffusion.schedule import Schedule
-from .models import unet1d_fused
 from .models.unet1d_fused import unet_apply_fn
 from .ops import mega, resblock
 from .parallel.mesh import Mesh, all_gather_rows, shard_params
@@ -70,6 +69,13 @@ from .tasks import TASKS
 from .tasks.base import Task, loaded_model, refine_solutions, select_best
 from .tasks.multi import merge_multi_config
 from .utils.checkpoint import load_checkpoint
+
+
+def device_ms(marks) -> Dict[str, float]:
+    """A program's device times from its timing events (``Solver._program``),
+    summed over its candidates, in ms; the events must have completed."""
+    return {"device_sample_ms": sum(a.elapsed_time(b) for a, b, _ in marks),
+            "device_decode_ms": sum(b.elapsed_time(c) for _, b, c in marks)}
 
 
 def _cuda_init(dev: torch.device) -> bool:
@@ -121,12 +127,18 @@ class _Inputs(NamedTuple):
     omega: torch.Tensor          # (candidates,)
 
 
+#: A candidate's timing events on the device: before its sampling, between
+#: sampling and decoding, after its decode.
+Marks = List[Tuple["torch.cuda.Event", "torch.cuda.Event", "torch.cuda.Event"]]
+
+
 class _Graph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     inputs: _Inputs
     out: torch.Tensor
     launches: Tuple[int, int]    # resblock and mega launches per replay
-    hoisted: int                 # prepared denoiser steps per replay
+    counts: Dict[str, int]       # ``obs`` counts per replay (``obs.captured``)
+    marks: Marks                 # the timing events the graph records
 
 
 class Solver:
@@ -306,11 +318,15 @@ class Solver:
         While ``obs`` records, the call leaves the spans ``solve`` and its
         children (``obs.PARENT``); ``solve.wait``, on a card only, is the
         host waiting for the device, and ``_block=False`` ends at
-        ``solve.launch``.
+        ``solve.launch``. On a card ``solve.wait`` carries the program's
+        device times, read from its timing events once the answer is on
+        the host: ``device_sample_ms`` (the samplers) and
+        ``device_decode_ms`` (the decoders), summed over the candidates.
         """
         tr = obs.request()
         with torch.inference_mode():
-            out = self._solve(X, omega, best_of, seed, sampler, n_steps, eta, renorm_steps, tr)
+            out, marks = self._solve(X, omega, best_of, seed, sampler, n_steps, eta,
+                                     renorm_steps, tr)
             if _block:
                 t = tr and tr.last_ns
                 if tr and out.is_cuda:
@@ -322,6 +338,8 @@ class Solver:
                 obs.COUNTS.bytes_out += out.nbytes
                 if tr:
                     tr.span("solve.copy", t, bytes=out.nbytes)
+                    if marks:
+                        tr.annotate("solve.wait", **device_ms(marks))
         if tr:
             tr.close()
         return out
@@ -337,7 +355,7 @@ class Solver:
         pending = []
         for j, i in enumerate(range(0, X.shape[0], chunk_size)):
             tr = obs.request()
-            pending.append(self._solve(X[i:i + chunk_size], seed=seed + j, tr=tr, **kw))
+            pending.append(self._solve(X[i:i + chunk_size], seed=seed + j, tr=tr, **kw)[0])
             if tr:
                 tr.close()
         out = np.concatenate([p.cpu().numpy() for p in pending])
@@ -347,9 +365,10 @@ class Solver:
     def _solve(self, X, omega=None, best_of: int = 1, seed: int = 0, sampler: str = "ddpm",
                n_steps: Optional[int] = None, eta: float = 0.0,
                renorm_steps: Optional[int] = None,
-               tr: Optional[obs.Request] = None) -> torch.Tensor:
-        """The decoded (n, D) solutions on the device, not yet copied; with
-        ``tr``, its spans from ``solve.stage`` to ``solve.launch``."""
+               tr: Optional[obs.Request] = None) -> Tuple[torch.Tensor, Optional[Marks]]:
+        """The decoded (n, D) solutions on the device, not yet copied, and
+        the program's timing events (None or empty where it records none);
+        with ``tr``, its spans from ``solve.stage`` to ``solve.launch``."""
         if sampler not in ("ddpm", "ddim"):
             raise ValueError(f"unknown sampler {sampler!r}; use 'ddpm' or 'ddim'")
         if sampler == "ddpm" and (n_steps is not None or eta != 0.0 or renorm_steps is not None):
@@ -391,6 +410,9 @@ class Solver:
         counts.requests += 1
         counts.rows += n
         counts.bucket_rows += b
+        # Timing events: a graph records its own at every replay; an eager
+        # program on a card records them only while obs records.
+        marks = [] if tr and self.device.type == "cuda" else None
         graphed = self.graphs and self.device.type == "cuda" and b in (self.buckets or ())
         g = self._graphs.get(spec) if graphed else None
         inputs = g.inputs if g is not None else self._alloc(spec, host["valid"] is not None)
@@ -398,18 +420,19 @@ class Solver:
         t = tr and tr.span("solve.stage", tr.start_ns)
         if not graphed:
             counts.eager += 1
-            out, path = self._run(spec, inputs)[:n], "eager"
+            out, path = self._run(spec, inputs, marks)[:n], "eager"
         else:
             path = "graph"
             if g is None:
                 g = self._graphs[spec] = self._capture(spec, inputs)
                 counts.captures += 1
                 path = "capture"
-            elif g.hoisted:
+            elif g.counts.get("hoisted_steps"):
                 self._apply.refresh()   # the graph reads the time table
             g.graph.replay()
             counts.replays += 1
-            counts.hoisted_steps += g.hoisted
+            obs.add(g.counts)
+            marks = g.marks
             resblock.LAUNCHES += g.launches[0]
             mega.LAUNCHES += g.launches[1]
             # A copy, so the next replay cannot overwrite a pending result.
@@ -417,7 +440,7 @@ class Solver:
         if tr:
             tr.span("solve.launch", t)
             tr.attrs.update(rows=n, bucket=b, path=path)
-        return out
+        return out, marks
 
     # -- the program and its inputs -----------------------------------------------
 
@@ -469,25 +492,40 @@ class Solver:
         if tr:
             tr.span("stage.noise", t)
 
-    def _run(self, spec: _Spec, inputs: _Inputs) -> torch.Tensor:
+    def _run(self, spec: _Spec, inputs: _Inputs, marks: Optional[Marks] = None
+             ) -> torch.Tensor:
         """The program, on a mesh with its reductions over dp and the
         decoded shards gathered: (b, D) on every rank."""
         if self.mesh is None:
-            return self._program(spec, inputs)
+            return self._program(spec, inputs, marks)
         with self.mesh.active():
-            return all_gather_rows(self._program(spec, inputs), self.mesh)
+            return all_gather_rows(self._program(spec, inputs, marks), self.mesh)
 
-    def _program(self, spec: _Spec, inputs: _Inputs) -> torch.Tensor:
+    def _program(self, spec: _Spec, inputs: _Inputs, marks: Optional[Marks] = None
+                 ) -> torch.Tensor:
         """Sample, decode, refine and (best-of) select: the work a graph
-        captures."""
+        captures. With ``marks`` (a list, on a card) each candidate records
+        three timing events on the current stream and appends them;
+        ``external`` events are recorded by a graph's every replay."""
         decs, scores = [], []
+        timed = marks is not None
+
+        def mark():
+            e = torch.cuda.Event(enable_timing=True, external=True)
+            e.record(torch.cuda.current_stream(self.device))
+            return e
+
         for k in range(spec.candidates):
+            start = mark() if timed else None
             y0 = self._sample(spec, inputs, k)
+            sampled = mark() if timed else None
             kw = {} if inputs.valid is None else {"valid_mask": inputs.valid}
             if self.task.decode_with_x is not None:
                 dec = self.task.decode_with_x(y0, inputs.cond_unnorm, self.config, **kw)
             else:
                 dec = self.task.decode(y0, self.config, **kw)
+            if timed:
+                marks.append((start, sampled, mark()))
             if spec.refine_iters > 0:
                 dec = refine_solutions(self.task, dec, inputs.cond_unnorm, self.config,
                                        spec.refine_iters, spec.refine_step)
@@ -519,11 +557,12 @@ class Solver:
         is warm too, as PyTorch's whole-network capture recipe does), and
         those launches count. Launches recorded during the
         capture do not run, so the wrappers keep them out of ``LAUNCHES``;
-        their number is added per replay instead, as are the prepared
-        denoiser steps (``obs.COUNTS.hoisted_steps``). On a mesh the graph
+        their number is added per replay instead, as are the ``obs`` counts
+        made inside it (``obs.captured``). On a mesh the graph
         captures the program's collectives too. Recorded as the set-up span
         ``capture``, with children ``capture.eager`` and ``capture.graph``."""
         dev = self.device
+        marks: Marks = []
         with obs.setup("capture", bucket=spec.bucket, sampler=spec.sampler):
             with obs.setup("capture.eager"):
                 side = torch.cuda.Stream(dev)
@@ -533,12 +572,12 @@ class Solver:
                         self._run(spec, inputs)
                 torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            before = (resblock.CAPTURED, mega.CAPTURED, unet1d_fused.HOISTED_CAPTURED)
+            before = (resblock.CAPTURED, mega.CAPTURED, obs.captured())
             try:
                 with obs.setup("capture.graph"), torch.cuda.graph(graph):
-                    out = self._run(spec, inputs)
+                    out = self._run(spec, inputs, marks)
             except Exception as e:
                 raise RuntimeError(f"CUDA graph capture failed for {spec}: {e}") from e
+        counts = {k: n - before[2][k] for k, n in obs.captured().items() if n != before[2][k]}
         return _Graph(graph, inputs, out,
-                      (resblock.CAPTURED - before[0], mega.CAPTURED - before[1]),
-                      unet1d_fused.HOISTED_CAPTURED - before[2])
+                      (resblock.CAPTURED - before[0], mega.CAPTURED - before[1]), counts, marks)

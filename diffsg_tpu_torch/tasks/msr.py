@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import obs
 from ..data.loaders import load_msr, load_msr_budget
 from ..models.unet1d import unet_msr
 from ..ops.decoders import masked_min_max, msr_decode, msr_simplex_project
@@ -49,8 +50,10 @@ def _decode_temp_selected(Y_raw, X_unnorm, config, valid_mask=None):
     """Decode at every temperature of ``MSR_DECODE_TEMPS`` (the batch-global
     min-max, over the valid rows under buckets, then a per-row softmax of
     ``t * Y``) and keep each row's best rate; ties go to the lower
-    temperature."""
+    temperature. Counts its candidate rows in ``obs``'s
+    ``decode_candidates``."""
     W = config["W"]
+    obs.count("decode_candidates", len(MSR_DECODE_TEMPS) * Y_raw.shape[0], Y_raw)
     mn, mx = masked_min_max(Y_raw, valid_mask)
     Yn = (Y_raw - mn) / (mx - mn)
     ps = torch.stack([W * torch.softmax(t * Yn, dim=1) for t in MSR_DECODE_TEMPS])
@@ -66,6 +69,7 @@ def _decode_proj_selected(Y_raw, X_unnorm, config, valid_mask=None):
     projection is the identity on feasible labels."""
     W = config["W"]
     y_scale = config.get("y_scale", 1.0)
+    obs.count("decode_candidates", len(MSR_PROJ_SCALES) * Y_raw.shape[0], Y_raw)
     ps = torch.stack([msr_simplex_project(a * Y_raw / y_scale, W) for a in MSR_PROJ_SCALES])
     rates = torch.stack([msr_sum_rate(p, X_unnorm) for p in ps])
     proj, r_proj = select_best(ps, rates, True), rates.max(dim=0).values

@@ -17,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from diffsg_tpu_torch import obs
 from diffsg_tpu_torch.ops import _build, mega, resblock
-from diffsg_tpu_torch.serve import Solver
+from diffsg_tpu_torch.serve import Solver, device_ms
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 torch.set_num_threads(1)
@@ -321,3 +321,55 @@ def test_cuda_graph_hoisted_steps(card):
     after = obs.counters()
     assert after["hoisted_steps"] == before["hoisted_steps"]
     assert after["mega_launches"] - before["mega_launches"] == 2 * 2 * 3
+
+
+@pytest.mark.cuda
+def test_cuda_device_times_from_timing_events(card):
+    """The proj-256 multi-task face (fused, x0, T 20) on a 4,096-row bucket:
+    while obs records, ``solve.wait`` carries ``device_sample_ms`` and
+    ``device_decode_ms`` from the timing events, graphed and eager, and the
+    graphed answers equal the eager ones bit for bit. The events of one
+    replay agree within 5% with the profiler's device span of that replay
+    (sampling and decode), and of its last operations, as many as the
+    decode runs alone (decode)."""
+    rows, kw = 4096, {"omega": 0.5}
+    ck = str(REPO / "ckpts" / "ddpm_multi_80")
+    graphed, eager = (Solver.from_checkpoint(ck, task="multi_msr80", backend="fused",
+                                             buckets=[rows], graphs=g) for g in (True, False))
+    graphed.warmup(configs=[kw])
+    X = conditions(graphed, rows, 7)
+    before = obs.counters()
+    obs.enable()
+    got = graphed.solve(X, seed=11, **kw)
+    want = eager.solve(X, seed=11, **kw)
+    after = obs.counters()
+    assert np.array_equal(got, want)
+    assert after["x0_steps"] - before["x0_steps"] == 2 * 20
+    assert after["decode_candidates"] - before["decode_candidates"] == 2 * 11 * rows
+    reqs = list(by_request().values())
+    assert [r["solve"].attrs["path"] for r in reqs] == ["graph", "eager"]
+    for r in reqs:
+        a = r["solve.wait"].attrs
+        assert 0 < a["device_decode_ms"] < a["device_sample_ms"], a
+
+    (g,) = graphed._graphs.values()
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        g.graph.replay()
+        torch.cuda.synchronize()
+    ops = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == cuda)
+    y0 = torch.randn((rows, 80), device=card)
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as alone:
+        graphed.task.decode_with_x(y0, g.inputs.cond_unnorm, graphed.config,
+                                   valid_mask=g.inputs.valid)
+        torch.cuda.synchronize()
+    n_decode = sum(e.device_type == cuda for e in alone.events())
+    dev = device_ms(g.marks)
+    span_ms = (ops[-1][1] - ops[0][0]) / 1e3
+    decode_ms = (ops[-1][1] - ops[-n_decode][0]) / 1e3
+    print(f"device times, events against trace: {dev}, span {span_ms} ms, "
+          f"decode {decode_ms} ms over its last {n_decode} of {len(ops)} operations")
+    total = dev["device_sample_ms"] + dev["device_decode_ms"]
+    assert abs(total - span_ms) <= 0.05 * span_ms
+    assert abs(dev["device_decode_ms"] - decode_ms) <= 0.05 * decode_ms
