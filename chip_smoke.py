@@ -2597,6 +2597,7 @@ def main() -> int:
                   ("p256", p256_model, ROWS, torch.float32),
                   ("p256", p256_model, ROWS, torch.bfloat16),
                   ("msr", model, 1000, torch.float32), ("nu", nu_model, 1000, torch.bfloat16),
+                  ("nu", nu_model, 1000, torch.float32),
                   ("p256", p256_model, 1000, torch.float32),
                   ("p256", p256_model, 1000, torch.bfloat16),
                   ("co", co_model, CO_ROWS, torch.float32), ("co", co_model, CO_ROWS, torch.bfloat16),
@@ -2630,6 +2631,11 @@ def main() -> int:
             out = mega.unet_forward_mega(net_model, y, t, cond, mask, cd, packed)
             torch.cuda.synchronize()
             launch = mega.last_launch()
+            # The narrow float32 nets take the row-resident design, all others the tiles.
+            check(launch["path"] == mega.mega_path(packed)
+                  and (launch["path"] == "rows") == (cd is None and net.startswith("nu")
+                                                     and net != "nu_geo"),
+                  f"mega {net} {dtype} rows {rows} ran the {launch['path']} design")
             ref = mega.unet_forward_mega_reference(net_model, y, t, cond, mask, cd)
             scale = float(ref.abs().max())
             diff = (out - ref).abs()
@@ -2653,13 +2659,15 @@ def main() -> int:
             big = rows > ROWS or (net in ("p256", "multi80") and rows >= ROWS)
             reps, replays = (3, 2) if big or rows < ROWS else (10, 3)
             k_ms = graph_ms(lambda: mega.launch_mega(packed, ys, sc, st), reps, replays)
-            # Every tile height on the two serving nets of the main path; the
-            # wrapper's and the eager call's times on MSR-3c f32 alone (the
-            # depth these sweeps had is cut to hold the script's time).
+            # Every tile height on the two serving nets of the main path (on
+            # NU float32 at both sizes, the tile design forced beside the
+            # row-resident one that kernel_ms times); the wrapper's and the
+            # eager call's times on MSR-3c f32 alone (the depth these sweeps
+            # had is cut to hold the script's time).
             tile_ms = {tr: graph_ms(lambda: mega.launch_mega(packed, ys, sc, st, tr), reps,
                                     replays)
                        for tr in mega.TILE_ROWS[dtype]
-                       if rows >= ROWS and net in ("msr", "nu")
+                       if ((rows >= ROWS and net in ("msr", "nu")) or (net, cd) == ("nu", None))
                        and mega.mega_smem_bytes(packed, dtype, tr) <= mega.SMEM_MAX}
             main_case = (net, rows, cd) == ("msr", ROWS, None)
             w_ms = (graph_ms(lambda: mega.unet_forward_mega(net_model, y, t, cond, mask, cd,
@@ -3559,9 +3567,9 @@ def main() -> int:
                 f"({serve_best_of_launches}) and the CO, MSR-variant, conditioned-NU, "
                 f"refinement, multi-task, train, train_clis, serve_multi_zoo, report, mesh, "
                 f"timing and orbax phases ({new_launches['mega']})",
-         "cases": [{k: r[k] for k in ("net", "dtype", "rows", "tile_rows", "max_abs_err",
-                                      "mean_abs_err", "kernel_ms", "plain_ms", "plain_bf16_ms",
-                                      "bound_ms", "bound_by")}
+         "cases": [{k: r[k] for k in ("net", "dtype", "rows", "path", "tile_rows",
+                                      "max_abs_err", "mean_abs_err", "kernel_ms", "tile_ms",
+                                      "plain_ms", "plain_bf16_ms", "bound_ms", "bound_by")}
                    for r in mega_rows]},
     ]}), flush=True)
     print(smi, flush=True)

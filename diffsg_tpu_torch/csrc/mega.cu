@@ -1,4 +1,23 @@
-// Whole-UNet1D forward in one launch, float32 or bfloat16, for sm_90a.
+// Whole-UNet1D forward in one launch, float32 or bfloat16, for sm_90a: the
+// tile design (mega_kernel, this file) for every net in bfloat16 and for the
+// wide nets in float32; the row-resident design (mega_kernel_rows and
+// mega_kernel_rows_warp, mega_rows.cu) for the narrow float32 nets.
+// ops/mega.py::mega_path picks one from the packed net and its type alone:
+// float32, every layer input at most 64 wide and every output at most 32
+// (the NU family: ckpts/ddpm_nu_3u_aug32_s8c, 8 to 64 wide) take the rows.
+//
+// What bounds each. The tile design runs every stage of every layer as a
+// CTA-wide pass over a tile of rows in shared memory, with a __syncthreads()
+// after each: about nine a residual block. On the wide nets (MSR-3c at 256,
+// CO at 128, proj 256) each pass carries enough products to fill the SM
+// between barriers. On the NU net's 8- to 32-wide layers it does not: a
+// layer's ~68,000 FMAs a 32-row tile take ~0.5 us of issue, while the chain
+// of passes, barriers, warp-wide LayerNorms on rows of 8 and weight loads
+// from L2 takes ~17 us, so the kernel ran at ~3% of its bound (63.06 ms
+// against 1.991 at 1,048,576 rows). The row-resident design keeps each row
+// in one thread (or, for few rows, one warp) from the first layer to the
+// last, stages each layer's weights once a CTA in shared memory and spends
+// one barrier a layer; it is bound by issue, ~125,000 instructions a row.
 //
 // Replaces diffsg_tpu/ops/pallas_mega.py::unet_forward_mega (kernel body
 // _kernel_body). For every row it runs the whole denoiser: feature_proj; the

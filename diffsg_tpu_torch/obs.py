@@ -74,7 +74,8 @@ class Counters:
     """Totals of this process, from every Solver; plain integer adds."""
 
     __slots__ = ("requests", "rows", "bucket_rows", "replays", "captures", "eager", "bytes_in",
-                 "bytes_out", "hoisted_steps", "x0_steps", "decode_candidates")
+                 "bytes_out", "hoisted_steps", "x0_steps", "decode_candidates",
+                 "mega_row_launches")
 
     def __init__(self):
         for name in self.__slots__:
@@ -94,7 +95,9 @@ class Counters:
 #: output the sampler turned into epsilon; decode_candidates: candidate rows
 #: that a condition-reading decoder scored (``tasks.msr``'s families: 6
 #: softmax temperatures, and 5 simplex projections besides where it selects
-#: by projection).
+#: by projection); mega_row_launches: launches of the mega kernel's
+#: row-resident design (``ops.mega.mega_path``), eager or by a graph's
+#: replay.
 COUNTS = Counters()
 #: The same counts made while a CUDA graph was captured: that work runs at
 #: each replay, not then, so whoever replays the graph adds them.

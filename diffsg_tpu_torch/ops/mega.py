@@ -44,6 +44,7 @@ from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import obs
 from ..parallel.mesh import sharded_names
 from . import _build
 from .resblock import FORWARD_ONLY
@@ -67,9 +68,13 @@ F_SHORTCUT, F_PUSH, F_CONCAT = 1, 2, 4
 # Columns of one table row (int32). The weight offsets index the packed
 # buffer; dense layers and the head use W1/B1 (and the head G1/BE1). LDW is
 # the padded output width: the row stride of every Dense of the layer.
+# STAGE and NSTAGE are the one contiguous range of the buffer that holds
+# every array the layer reads per row (a block's all but W_t and b_t, which
+# are packed before it), which the row-resident kernel copies into shared
+# memory whole.
 (K_KIND, K_IN, K_OUT, K_FLAGS, K_SKIP_OFF, K_SKIP_W, K_TPROJ,
  K_G1, K_BE1, K_W1, K_B1, K_WT, K_BT, K_G2, K_BE2, K_W2, K_B2, K_WC, K_BC,
- K_G3, K_BE3, K_W3, K_B3, K_WS, K_BS, K_LDW) = range(26)
+ K_G3, K_BE3, K_W3, K_B3, K_WS, K_BS, K_LDW, K_STAGE, K_NSTAGE) = range(28)
 TABLE_COLS = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,6 +107,7 @@ class MegaParams(NamedTuple):
     time_dim: int              # width of st (4 * proj_dim)
     input_dim: int             # D
     cond_dim: int              # C
+    stage_max: int             # values of the largest staged range (K_NSTAGE)
 
 
 def _ld(width: int, dtype: torch.dtype) -> int:
@@ -149,6 +155,82 @@ def mega_grid(packed: MegaParams, rows: int, tile_rows: int, sms: int) -> int:
     per SM where their shared memory allows), at most one per tile."""
     two = mega_smem_bytes(packed, packed.weights.dtype, tile_rows) <= SMEM_TWO_PER_SM
     return min(-(-rows // tile_rows), (2 if two else 1) * sms)
+
+
+#: The row-resident design (``csrc/mega_rows.cu``) takes float32 nets whose
+#: every layer input is at most ``ROW_MAX_IN`` wide and every output (the
+#: head's D included) at most ``ROW_MAX_OUT``: a thread keeps two sets of up
+#: to 32 sums of its row in registers, and its row's input, up to 64 values,
+#: in its own columns of shared memory. The kernel states the same limits.
+ROW_MAX_IN, ROW_MAX_OUT = 64, 32
+#: Rows (threads) a CTA of the row-resident kernel may take, in whole warps;
+#: its launch bound, which leaves a thread 168 registers.
+ROW_CTA_MAX = 384
+#: Shared memory of an SM: 228 KB, of which each resident CTA reserves 1 KB.
+SMEM_SM = 233_472
+#: Up to this many rows a launch, the row-resident kernel gives a row a warp
+#: (``mega_kernel_rows_warp``: the row's values across the lanes, lane j
+#: computing output column j); above it a thread (``mega_kernel_rows``).
+#: With few rows a thread a row leaves most of the card idle behind one
+#: thread's chain of a whole forward.
+ROW_WARP_MAX_ROWS = 4096
+
+
+def mega_path(packed: MegaParams) -> str:
+    """The design that runs ``packed``'s net when the caller forces no tile
+    height: "rows" (``csrc/mega_rows.cu``: each row resident in a thread or
+    a warp from the first layer to the last, each layer's weights staged
+    once a CTA in shared memory, one barrier a layer) for float32 nets
+    within ``ROW_MAX_IN`` and ``ROW_MAX_OUT`` whose smallest CTA fits, else
+    "tile" (``csrc/mega.cu``: tiles of rows in shared memory, a barrier
+    between every pass). Read from the packed net alone."""
+    narrow = (packed.weights.dtype == torch.float32 and packed.max_in <= ROW_MAX_IN
+              and max(packed.max_out, packed.input_dim) <= ROW_MAX_OUT)
+    return "rows" if narrow and mega_row_smem_bytes(packed, 32) <= SMEM_MAX else "tile"
+
+
+def mega_row_smem_bytes(packed: MegaParams, cta_rows: int, lanes: int = 1) -> int:
+    """Dynamic shared memory of one CTA of the row-resident kernel at
+    ``cta_rows`` rows and ``lanes`` lanes a row (1 or 32), as
+    ``csrc/mega_rows.cu::smem_bytes`` sizes it: the mbarriers (128 bytes),
+    the weight buffers of the largest staged range (two with a thread a row,
+    four with a warp), the time projections, st and the layer table; with a
+    thread a row also each row's columns of x (the widest input, output or
+    D), of h (the widest output) and of sc (C)."""
+    ldx = max(packed.max_in, packed.max_out, packed.input_dim)
+    per_row = ldx + packed.max_out + packed.cond_dim if lanes == 1 else 0
+    buffers = 2 if lanes == 1 else 4
+    return 128 + 4 * (buffers * packed.stage_max + _round_up(packed.n_tproj, 4)
+                      + _round_up(packed.time_dim, 4) + TABLE_COLS * packed.table.shape[0]
+                      + cta_rows * per_row)
+
+
+def mega_row_layout(packed: MegaParams, rows: int, sms: int) -> Tuple[int, int, int]:
+    """(lanes a row, rows a CTA, grid) of the row-resident kernel at
+    ``rows`` rows on ``sms`` SMs.
+
+    Up to ``ROW_WARP_MAX_ROWS`` rows (and a condition of at most 64 values)
+    a warp a row: CTAs of 8 warps while that gives each SM at most one, else
+    of 16, as many resident as shared memory and 2,048 threads an SM allow.
+
+    Else a thread a row: the most rows a CTA (whole warps, up to
+    ``ROW_CTA_MAX``) whose CTA fits, where that leaves every SM four tiles
+    or more to walk, so that the last, partial wave costs little; else 128,
+    four warps, two CTAs an SM where they fit (an SM's wave of tiles takes
+    longer the more warps share it, so below a few waves the narrower CTAs
+    finish first). As many CTAs as are resident at once (by shared memory,
+    and by the registers the launch bound allows, ``ROW_CTA_MAX`` threads
+    an SM), at most one a tile."""
+    if rows <= ROW_WARP_MAX_ROWS and packed.cond_dim <= 64:
+        cta_rows = 8 if -(-rows // 8) <= sms else 16
+        smem = mega_row_smem_bytes(packed, cta_rows, 32)
+        per_sm = max(1, min(2048 // (32 * cta_rows), SMEM_SM // (smem + 1024)))
+        return 32, cta_rows, min(-(-rows // cta_rows), per_sm * sms)
+    fits = [n for n in range(32, ROW_CTA_MAX + 1, 32) if mega_row_smem_bytes(packed, n) <= SMEM_MAX]
+    cta_rows = max(fits) if -(-rows // max(fits)) >= 4 * sms else min(128, max(fits))
+    smem = mega_row_smem_bytes(packed, cta_rows)
+    per_sm = max(1, min(ROW_CTA_MAX // cta_rows, SMEM_SM // (smem + 1024)))
+    return 1, cta_rows, min(-(-rows // cta_rows), per_sm * sms)
 
 
 def _check_model(model: "UNet1D") -> None:
@@ -206,8 +288,13 @@ def pack_params(model: "UNet1D", dtype: Optional[torch.dtype] = None,
         skip.append((skip_top, r[K_OUT]))
         skip_top += r[K_OUT]
 
+    def staged(r: List[int], start: int) -> None:
+        r[K_STAGE], r[K_NSTAGE] = start, size - start
+
     def dense(r: List[int], lin) -> None:
+        start = size
         r[K_W1], r[K_B1] = put(lin.kernel), put(lin.bias)
+        staged(r, start)
 
     def block(res, concat: bool) -> List[int]:
         nonlocal n_tproj
@@ -215,9 +302,10 @@ def pack_params(model: "UNet1D", dtype: Optional[torch.dtype] = None,
         r = row(BLOCK, d_in, d_out)
         r[K_TPROJ] = n_tproj
         n_tproj += d_out
+        r[K_WT], r[K_BT] = put(res.time_emb.kernel), put(res.time_emb.bias)
+        start = size
         r[K_G1], r[K_BE1] = put(res.norm1.scale), put(res.norm1.bias)
         r[K_W1], r[K_B1] = put(res.lin1.kernel), put(res.lin1.bias)
-        r[K_WT], r[K_BT] = put(res.time_emb.kernel), put(res.time_emb.bias)
         r[K_G2], r[K_BE2] = put(res.norm2.scale), put(res.norm2.bias)
         r[K_W2], r[K_B2] = put(res.lin2.kernel), put(res.lin2.bias)
         r[K_WC], r[K_BC] = put(res.cond_emb.kernel), put(res.cond_emb.bias)
@@ -226,6 +314,7 @@ def pack_params(model: "UNet1D", dtype: Optional[torch.dtype] = None,
         if res.shortcut is not None:
             r[K_FLAGS] |= F_SHORTCUT
             r[K_WS], r[K_BS] = put(res.shortcut.kernel), put(res.shortcut.bias)
+        staged(r, start)
         if concat:
             r[K_FLAGS] |= F_CONCAT
             r[K_SKIP_OFF], r[K_SKIP_W] = skip.pop()
@@ -250,8 +339,10 @@ def pack_params(model: "UNet1D", dtype: Optional[torch.dtype] = None,
             r = row(RESAMPLE, *m.lin.kernel.shape)
             dense(r, m.lin)
     r = row(HEAD, model.proj_dim, model.input_dim)
+    start = size
     r[K_G1], r[K_BE1] = put(model.norm.scale), put(model.norm.bias)
     dense(r, model.final)
+    staged(r, start)
     if skip:
         raise AssertionError(f"skip stack not empty after the up path: {skip}")
 
@@ -275,7 +366,8 @@ def pack_params(model: "UNet1D", dtype: Optional[torch.dtype] = None,
         weights=buf.to(device=device, dtype=dtype), table=torch.tensor(rows, dtype=torch.int32,
                                                                        device=device),
         skip_width=skip_top, max_in=max_in, max_out=max_out, n_tproj=n_tproj,
-        time_dim=model.proj_dim * 4, input_dim=model.input_dim, cond_dim=model.cond_dim)
+        time_dim=model.proj_dim * 4, input_dim=model.input_dim, cond_dim=model.cond_dim,
+        stage_max=max(r[K_NSTAGE] for r in rows))
 
 
 # -- the function, in plain PyTorch ---------------------------------------------
@@ -385,6 +477,10 @@ def _out_dtype(dtype: torch.dtype, compute_dtype: Optional[torch.dtype]) -> torc
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 7 + [ctypes.c_int] * 12 + [_P]
+_ROW_ARGTYPES = [_P] * 7 + [ctypes.c_int] * 13 + [_P]
+#: The design of the last launch in this process: its path ("rows" or
+#: "tile") and, on "rows", its lanes a row.
+_LAST: Dict[str, object] = {"path": "tile"}
 
 
 def _library() -> ctypes.CDLL:
@@ -393,10 +489,13 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
+        lib.diffsg_unet_mega_rows.argtypes = _ROW_ARGTYPES
+        lib.diffsg_unet_mega_rows.restype = ctypes.c_int
         lib.diffsg_cuda_error_string.argtypes = [ctypes.c_int]
         lib.diffsg_cuda_error_string.restype = ctypes.c_char_p
-        lib.diffsg_unet_mega_last_launch.argtypes = [ctypes.c_void_p]
-        lib.diffsg_unet_mega_last_launch.restype = None
+        for last in (lib.diffsg_unet_mega_last_launch, lib.diffsg_unet_mega_rows_last_launch):
+            last.argtypes = [ctypes.c_void_p]
+            last.restype = None
     return lib
 
 
@@ -448,9 +547,13 @@ def launch_mega(packed: MegaParams, y: torch.Tensor, sc: torch.Tensor, st: torch
                 tile_rows: int = 0) -> torch.Tensor:
     """One launch of the kernel on the inputs ``mega_inputs`` makes (all on
     one CUDA device, of the packed weights' type); returns float32 (B, D).
-    ``tile_rows`` is the rows per CTA, one of ``TILE_ROWS[dtype]``; 0 takes
-    ``mega_tile_rows``'s choice. The skip stack's scratch is allocated here,
-    on the current stream, one (tile_rows, skip_width) slice per CTA."""
+    ``tile_rows`` 0 runs the design ``mega_path`` picks: the row-resident
+    kernel in ``mega_row_layout``'s layout, or the tile kernel at
+    ``mega_tile_rows``' height. A ``tile_rows`` of ``TILE_ROWS[dtype]``
+    forces the tile kernel at that height. The skip stack's scratch is
+    allocated here, on the current stream, one (rows a CTA, skip_width)
+    slice per CTA. A row-resident launch counts ``mega_row_launches`` in
+    ``obs``."""
     dev, dtype = y.device, packed.weights.dtype
     if dev.type != "cuda":
         raise ValueError(f"launch_mega runs on a CUDA device, not {dev}")
@@ -473,32 +576,51 @@ def launch_mega(packed: MegaParams, y: torch.Tensor, sc: torch.Tensor, st: torch
     if rows == 0:
         return out
     sms = _sm_count(dev.index)
-    tile_rows = tile_rows or mega_tile_rows(packed, rows, sms)
-    grid = mega_grid(packed, rows, tile_rows, sms)
+    path = "tile" if tile_rows else mega_path(packed)
+    if path == "rows":
+        lanes, tile_rows, grid = mega_row_layout(packed, rows, sms)
+    else:
+        tile_rows = tile_rows or mega_tile_rows(packed, rows, sms)
+        grid = mega_grid(packed, rows, tile_rows, sms)
     skip = torch.empty(grid * tile_rows * packed.skip_width, device=dev, dtype=dtype)
     lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (y.data_ptr(), sc.data_ptr(), st.data_ptr(), packed.weights.data_ptr(),
+            packed.table.data_ptr(), out.data_ptr(), skip.data_ptr())
     with torch.cuda.device(dev):
-        err = lib.diffsg_unet_mega(
-            y.data_ptr(), sc.data_ptr(), st.data_ptr(), packed.weights.data_ptr(),
-            packed.table.data_ptr(), out.data_ptr(), skip.data_ptr(),
-            _DTYPES[dtype], rows, packed.table.shape[0], packed.input_dim,
-            packed.cond_dim, packed.time_dim, packed.skip_width, packed.max_in,
-            packed.max_out, packed.n_tproj, tile_rows, grid,
-            torch.cuda.current_stream(dev).cuda_stream)
+        if path == "rows":
+            err = lib.diffsg_unet_mega_rows(
+                *ptrs, rows, packed.table.shape[0], packed.input_dim, packed.cond_dim,
+                packed.time_dim, packed.skip_width, packed.max_in, packed.max_out,
+                packed.n_tproj, packed.stage_max, int(lanes == 32), tile_rows, grid, stream)
+        else:
+            err = lib.diffsg_unet_mega(
+                *ptrs, _DTYPES[dtype], rows, packed.table.shape[0], packed.input_dim,
+                packed.cond_dim, packed.time_dim, packed.skip_width, packed.max_in,
+                packed.max_out, packed.n_tproj, tile_rows, grid, stream)
     if err != 0:
         msg = lib.diffsg_cuda_error_string(err).decode()
         raise RuntimeError(f"mega kernel launch failed: {msg} ({err})")
-    global LAUNCHES, CAPTURED
+    global LAUNCHES, CAPTURED, _LAST
+    _LAST = {"path": path, "lanes": lanes} if path == "rows" else {"path": path}
     if torch.cuda.is_current_stream_capturing():
         CAPTURED += 1
     else:
         LAUNCHES += 1
+    if path == "rows":
+        obs.count("mega_row_launches", 1, y)
     return out
 
 
-def last_launch() -> Dict[str, int]:
-    """Tile rows, grid size and shared-memory bytes of the last launch in
-    this process (all 0 before the first)."""
+def last_launch() -> Dict[str, object]:
+    """The design of the last launch in this process (``path``: "rows" or
+    "tile"; on "rows" ``lanes``, 1 or 32 lanes a row), its rows a CTA
+    (``tile_rows``), grid size and shared-memory bytes (0 before the first
+    launch of that path)."""
     info = (ctypes.c_int * 3)()
-    _library().diffsg_unet_mega_last_launch(info)
-    return dict(zip(("tile_rows", "grid", "smem_bytes"), info))
+    lib = _library()
+    if _LAST["path"] == "rows":
+        lib.diffsg_unet_mega_rows_last_launch(info)
+    else:
+        lib.diffsg_unet_mega_last_launch(info)
+    return {**_LAST, **dict(zip(("tile_rows", "grid", "smem_bytes"), info))}

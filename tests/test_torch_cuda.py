@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from diffsg_tpu_torch import obs
 from diffsg_tpu_torch.models import UNet1D, unet_co, unet_forward_fused, unet_msr, unet_nu
 from diffsg_tpu_torch.ops import mega, resblock
 from diffsg_tpu_torch.ops.mega import (launch_mega, mega_inputs as mega_kernel_inputs,
@@ -233,6 +234,102 @@ def test_cuda_mega_matches_reference(net, rows, dtype, tile_rows):
     # carries through the net: 2% of the magnitude, as against JAX.
     tol = (1e-4 if cd is None else 2e-2) * float(ref.abs().max())
     torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,rows", [("nu", 1), ("nu", 16), ("nu", 37), ("nu", 1000), ("nu", 4096),
+                                      ("nu", 4097), ("nu", 70001), ("nu", 1 << 20), ("odd", 37),
+                                      ("odd", 5000), ("nu_budget", 1000)])
+def test_cuda_mega_rows_matches_reference(net, rows):
+    """The row-resident kernel (a warp a row up to 4,096 rows, a thread a row
+    above; ragged last tiles at 37, 4,097, 70,001) against the plain version
+    under the float32 tolerance, and against the tile kernel forced through
+    ``tile_rows`` on the same inputs; one launch, counted by ``mega.LAUNCHES``
+    and ``obs``'s ``mega_row_launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, inputs = mega_inputs(net, rows, seed=rows, device="cuda")
+    packed = pack_params(model)
+    assert mega.mega_path(packed) == "rows"
+    before, rows_before = mega.LAUNCHES, obs.counters()["mega_row_launches"]
+    with torch.no_grad():
+        out = unet_forward_mega(model, *inputs, packed=packed)
+        torch.cuda.synchronize()
+        info = mega.last_launch()
+        assert (mega.LAUNCHES, obs.counters()["mega_row_launches"]) == (before + 1, rows_before + 1)
+        ref = unet_forward_mega_reference(model, *inputs)
+        tile = launch_mega(packed, *mega_kernel_inputs(model, *inputs), 32)
+        torch.cuda.synchronize()
+    assert info["path"] == "rows" and info["lanes"] == (32 if rows <= mega.ROW_WARP_MAX_ROWS else 1)
+    assert mega.last_launch()["path"] == "tile"
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    # The forward tolerance of test_cuda_mega_matches_reference.
+    tol = 1e-4 * float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    torch.testing.assert_close(out, tile, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1000, 70001])
+def test_cuda_mega_rows_graph_replay_equals_eager(rows):
+    """A row-resident launch captured in a CUDA graph: the replay's answer
+    equals the eager launch's bit for bit; ``mega_row_launches`` counts 1
+    for the eager launch, and the capture keeps 1 in ``obs.captured()`` for
+    whoever replays the graph to add (``serve.Solver`` does)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    model, inputs = mega_inputs("nu", rows, seed=11, device="cuda")
+    packed = pack_params(model)
+    with torch.no_grad():
+        ys, sc, st = mega_kernel_inputs(model, *inputs)
+        counted = obs.counters()["mega_row_launches"]
+        eager = launch_mega(packed, ys, sc, st)
+        torch.cuda.synchronize()
+        assert obs.counters()["mega_row_launches"] == counted + 1
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            launch_mega(packed, ys, sc, st)
+        torch.cuda.current_stream().wait_stream(side)
+        captured = obs.captured()["mega_row_launches"]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = launch_mega(packed, ys, sc, st)
+        assert obs.captured()["mega_row_launches"] == captured + 1
+        assert obs.counters()["mega_row_launches"] == counted + 2
+        for _ in range(2):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_mega_row_launches_from_the_solvers_graphs():
+    """Served from the buckets' CUDA graphs, an NU request (mega, DDIM 3)
+    adds 3 row-resident launches a replay, as many as its mega launches;
+    an MSR-3c request (fused) adds none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    nu = _serve_solver("ddpm_nu_3u_aug32_s8c", "nu_direct", "mega", buckets=(64,))
+    kw = {"omega": 0.125, "sampler": "ddim", "n_steps": 3}
+    rng = np.random.default_rng(3)
+    X = rng.uniform(0, 1, (40, nu._C)).astype(np.float32)
+    nu.solve(X, seed=1, **kw)            # captures the bucket's graph
+    before = obs.counters()
+    for seed in (2, 3):
+        nu.solve(X, seed=seed, **kw)
+    after = obs.counters()
+    assert after["replays"] - before["replays"] == 2
+    assert after["mega_row_launches"] - before["mega_row_launches"] == 2 * 3
+    assert after["mega_launches"] - before["mega_launches"] == 2 * 3
+    msr = _serve_solver("ddpm_msr_3c_T100", "msr", "fused", buckets=(8,))
+    X = rng.uniform(0, 1, (5, msr._C)).astype(np.float32)
+    msr.solve(X, seed=1)
+    before = obs.counters()
+    msr.solve(X, seed=2)
+    assert obs.counters()["mega_row_launches"] == before["mega_row_launches"]
 
 
 @pytest.mark.cuda

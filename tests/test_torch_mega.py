@@ -350,3 +350,111 @@ def test_cpu_wrapper_is_the_reference_and_does_not_count():
         ref = unet_forward_mega_reference(model, *inputs)
     assert mega.LAUNCHES == before
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+# The odd-width net of the card tests: widths that are no multiple of 16
+# (20, 12, 8; concats of 40 and 24).
+def unet_odd():
+    return UNet1D(input_dim=3, proj_dim=20, cond_dim=4, dims=(12, 8), n_blocks=2)
+
+
+@pytest.mark.parametrize("build,dtype,path", [
+    (lambda: unet_nu(3), torch.float32, "rows"),
+    (unet_odd, torch.float32, "rows"),
+    (lambda: unet_nu(3, cond_extra=1), torch.float32, "rows"),
+    (lambda: unet_nu(3), torch.bfloat16, "tile"),
+    (unet_odd, torch.bfloat16, "tile"),
+    (lambda: unet_msr(3), torch.float32, "tile"),
+    (unet_p256, torch.float32, "tile"),
+    (lambda: unet_nu(3, cond_extra=3, proj_dim=64, dims=(64, 32, 16)), torch.float32, "tile"),
+], ids=["nu-f32", "odd-f32", "nu_budget-f32", "nu-bf16", "odd-bf16", "msr-f32", "p256-f32",
+        "nu_geo-f32"])
+def test_mega_path_rule(build, dtype, path):
+    """The design is a function of the packed net and its type alone:
+    float32 nets whose every input is at most 64 wide and every output (D
+    included) at most 32 take the row-resident kernel; bf16 and the wider
+    nets the tile kernel."""
+    packed = pack_params(build(), dtype, torch.device("cpu"))
+    assert mega.mega_path(packed) == path
+    narrow = packed.max_in <= mega.ROW_MAX_IN and max(packed.max_out, packed.input_dim) <= 32
+    assert (path == "rows") == (dtype == torch.float32 and narrow)
+
+
+@pytest.mark.parametrize("build", [lambda: unet_nu(3), unet_odd, lambda: unet_msr(3), unet_p256],
+                         ids=["nu", "odd", "msr", "p256"])
+def test_pack_params_staged_ranges(build):
+    """Each layer's staged range (K_STAGE, K_NSTAGE) is one contiguous run of
+    the buffer that holds exactly the arrays the layer reads per row (a
+    block's all but W_t and b_t), starts on 16 values (64 bytes) and is a
+    multiple of 16 values long, so one bulk copy moves it; ``stage_max`` is
+    the longest."""
+    torch.manual_seed(2)
+    model = build()
+    packed = pack_params(model, torch.float32, torch.device("cpu"))
+    rows = packed.table.tolist()
+    per_layer = {}
+    for i, col, p in _packed_arrays(model):
+        size = int(np.prod([-(-n // 16) * 16 for n in p.shape]))
+        per_layer.setdefault(i, []).append((col, rows[i][col], size))
+    for i, r in enumerate(rows):
+        start, n = r[mega.K_STAGE], r[mega.K_NSTAGE]
+        assert start % 16 == 0 and n % 16 == 0 and n > 0, (i, start, n)
+        staged = sorted((off, size) for col, off, size in per_layer[i]
+                        if col not in (mega.K_WT, mega.K_BT))
+        # The staged arrays tile [start, start + n) with no gap.
+        assert staged[0][0] == start and staged[-1][0] + staged[-1][1] == start + n, i
+        assert all(a + sa == b for (a, sa), (b, _) in zip(staged, staged[1:])), i
+        for col, off, size in per_layer[i]:
+            if col in (mega.K_WT, mega.K_BT):   # read once a CTA, from device memory
+                assert off + size <= start or off >= start + n, (i, col)
+    assert packed.stage_max == max(r[mega.K_NSTAGE] for r in rows)
+    # The NU net's largest range: a 64 -> 32 up block with its shortcut,
+    # 4 x 64 + 9 x 32 vector values and W1, W2, W3, Ws, W_c (padded to 16 rows).
+    if packed.input_dim == 5 and packed.cond_dim == 6:
+        assert packed.stage_max == 4 * 64 + 9 * 32 - 128 + 64 * 32 * 2 + 32 * 32 * 2 + 16 * 32
+
+
+def test_mega_row_smem_bytes_reckoned():
+    """The row-resident kernel's shared memory, reckoned by hand for the NU
+    net: 128 bytes of mbarriers, two weight buffers of the largest range
+    (7,072 values) with a thread a row and four with a warp, 456 time
+    projections, st (128), the table (30 rows of 32), and with a thread a
+    row 64 + 32 + 6 columns a row."""
+    nu = pack_params(unet_nu(3))
+    fixed = 456 + 128 + 30 * 32
+    assert nu.stage_max == 7072 and nu.table.shape[0] == 30
+    assert mega.mega_row_smem_bytes(nu, 384) == 128 + 4 * (2 * 7072 + fixed + 384 * 102)
+    assert mega.mega_row_smem_bytes(nu, 8, 32) == 128 + 4 * (4 * 7072 + fixed)
+    assert mega.mega_row_smem_bytes(nu, 16, 32) == mega.mega_row_smem_bytes(nu, 8, 32)
+    # 384 rows a CTA fit; 416 do not.
+    assert mega.mega_row_smem_bytes(nu, 384) <= mega.SMEM_MAX < mega.mega_row_smem_bytes(nu, 416)
+
+
+@pytest.mark.parametrize("rows,layout", [
+    (1, (32, 8, 1)), (16, (32, 8, 2)), (1000, (32, 8, 125)), (1056, (32, 8, 132)),
+    (1057, (32, 16, 67)), (4096, (32, 16, 132)), (4097, (1, 128, 33)), (65536, (1, 128, 264)),
+    (202368, (1, 128, 264)), (202369, (1, 384, 132)), (1 << 20, (1, 384, 132)),
+])
+def test_mega_row_layout_from_the_row_count(rows, layout):
+    """Lanes a row, rows a CTA and grid on 132 SMs for the NU net: a warp a
+    row up to 4,096 rows, 8 warps a CTA while every SM gets at most one CTA,
+    then 16 (one CTA an SM: 16 warps of 119 KB); a thread a row above, 128
+    rows a CTA (two an SM) until 384-row CTAs leave every SM four tiles
+    (more than 384 x 527 = 202,368 rows), then 384 (one an SM)."""
+    nu = pack_params(unet_nu(3))
+    assert mega.mega_row_layout(nu, rows, sms=132) == layout
+    lanes, cta_rows, grid = layout
+    assert mega.mega_row_smem_bytes(nu, cta_rows, lanes) <= mega.SMEM_MAX
+    assert 1 <= grid <= -(-rows // cta_rows)
+
+
+def test_mega_row_layout_odd_and_few_sms():
+    """The odd-width net lays out as the NU net does; on 3 SMs the grids
+    stay within what is resident and every CTA gets a tile."""
+    odd = pack_params(unet_odd())
+    assert mega.mega_path(odd) == "rows"
+    for rows in (1, 37, 1000, 4096, 4097, 1 << 16):
+        lanes, cta_rows, grid = mega.mega_row_layout(odd, rows, sms=3)
+        assert lanes in (1, 32) and (lanes == 32) == (rows <= mega.ROW_WARP_MAX_ROWS)
+        assert 1 <= grid <= min(-(-rows // cta_rows), 3 * (384 // cta_rows if lanes == 1 else 4))
+        assert mega.mega_row_smem_bytes(odd, cta_rows, lanes) <= mega.SMEM_MAX
