@@ -828,7 +828,6 @@ def train_phase(dev):
     from diffsg_tpu_torch.diffusion import cosine_schedule, ddpm_loss
     from diffsg_tpu_torch.models import unet_apply_fn, unet_forward_fused
     from diffsg_tpu_torch.models.unet1d import ResidualBlock
-    from diffsg_tpu_torch.ops import mega, resblock
     from diffsg_tpu_torch.serve import Solver
     from diffsg_tpu_torch.tasks import TASKS
     from diffsg_tpu_torch.train import EpochDraws, torch_style_init, train_ddpm
@@ -990,14 +989,14 @@ def train_phase(dev):
             model = solver.model
             blocks = sum(isinstance(m, ResidualBlock) for m in model.modules())
             want = solver.sched.T * (blocks if backend == "fused" else 1)
-            resblock.LAUNCHES = mega.LAUNCHES = 0
+            mark = launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             S = solver.solve(X, seed=0)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            got = resblock.LAUNCHES if backend == "fused" else mega.LAUNCHES
-            other = mega.LAUNCHES if backend == "fused" else resblock.LAUNCHES
+            counted = launch_counts(mark)
+            got, other = counted[backend], counted["mega" if backend == "fused" else "fused"]
             check(got == want and other == 0, f"train {name} serve {backend}: {want} launches "
                                               f"and no other, counted {got} and {other}")
             launches[backend] += got
@@ -1160,7 +1159,6 @@ def train_clis_phase(dev):
 
     from diffsg_tpu_torch.models import unet_apply_fn
     from diffsg_tpu_torch.models.unet1d import ResidualBlock
-    from diffsg_tpu_torch.ops import mega, resblock
     from diffsg_tpu_torch.serve import Solver
     from diffsg_tpu_torch.train import TrainConfig
     from diffsg_tpu_torch.utils import load_checkpoint
@@ -1212,14 +1210,14 @@ def train_clis_phase(dev):
             net = getattr(model, "inner", model)
             blocks = sum(isinstance(m, ResidualBlock) for m in net.modules())
             want = solver.sched.T * (blocks if backend == "fused" else 1)
-            resblock.LAUNCHES = mega.LAUNCHES = 0
+            mark = launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             S = solver.solve(X, seed=0)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            got = resblock.LAUNCHES if backend == "fused" else mega.LAUNCHES
-            other = mega.LAUNCHES if backend == "fused" else resblock.LAUNCHES
+            counted = launch_counts(mark)
+            got, other = counted[backend], counted["mega" if backend == "fused" else "fused"]
             check(got == want and other == 0, f"train_clis {name} serve {backend}: {want} "
                                               f"launches and no other, counted {got}, {other}")
             launches[backend] += got
@@ -1561,7 +1559,6 @@ def report_phase(dev):
     import contextlib
     import io
 
-    from diffsg_tpu_torch.ops import mega, resblock
     from diffsg_tpu_torch.tasks import TASKS
     from diffsg_tpu_torch.tools import fewstep
 
@@ -1576,7 +1573,7 @@ def report_phase(dev):
                  "--baselines", "gd", *algos]
                 + [x for a in algos for x in (f"--{a}-ckpt",
                                               os.path.join(REPO, "ckpts", BASELINE_CKPTS[a, fam]))])
-        resblock.LAUNCHES = mega.LAUNCHES = 0
+        mark = launch_counts()
         t0 = time.perf_counter()
         rows = run_report(argv, os.path.join(out_root, f"report_{fam}.jsonl"))
         seconds = time.perf_counter() - t0
@@ -1584,9 +1581,10 @@ def report_phase(dev):
         T, blocks = _steps_and_blocks(ckpt)
         steps = 3 if "--n-steps" in spec["argv"] else T
         want = -(-n_test // 512) * steps * blocks
-        check(resblock.LAUNCHES == want and mega.LAUNCHES == 0,
-              f"report {fam}: {want} fused launches, counted {resblock.LAUNCHES} and "
-              f"{mega.LAUNCHES} mega")
+        counted = launch_counts(mark)
+        check(counted == {"fused": want, "mega": 0},
+              f"report {fam}: {want} fused launches, counted {counted['fused']} and "
+              f"{counted['mega']} mega")
         launches["fused"] += want
         check([r["solver"] for r in rows] == [rows[0]["solver"], "gd", *algos],
               f"report {fam}: rows {[r['solver'] for r in rows]}")
@@ -1608,7 +1606,7 @@ def report_phase(dev):
         argv = ["--task", rspec["task"], "--ckpt", ckpt, "--datasets", paths[fam],
                 "--backend", spec["backend"], *spec["argv"]]
         printed = io.StringIO()
-        resblock.LAUNCHES = mega.LAUNCHES = 0
+        mark = launch_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
             fewstep.main(argv)
@@ -1619,8 +1617,9 @@ def report_phase(dev):
         n_test = len(TASKS[rspec["task"]].load(paths[fam]).X_test)
         steps = [int(s) for s in spec["argv"][spec["argv"].index("--steps") + 1:]]
         want = -(-n_test // 512) * (T + sum(steps)) * (blocks if spec["backend"] == "fused" else 1)
-        counted, other = ((resblock.LAUNCHES, mega.LAUNCHES) if spec["backend"] == "fused"
-                          else (mega.LAUNCHES, resblock.LAUNCHES))
+        since = launch_counts(mark)
+        counted, other = ((since["fused"], since["mega"]) if spec["backend"] == "fused"
+                          else (since["mega"], since["fused"]))
         check(counted == want and other == 0, f"fewstep {fam}: {want} {spec['backend']} "
                                               f"launches, counted {counted} and {other}")
         launches[spec["backend"]] += want
@@ -1664,9 +1663,20 @@ def headline_constants(name):
     return HEADLINE_JAX[name]
 
 
+def launch_counts(since=None):
+    """The kernel launches run on the card so far, ``obs.counters()``'s
+    ``resblock_launches`` as "fused" and ``mega_launches`` as "mega"; with
+    ``since`` (an earlier return of this), those run after it."""
+    from diffsg_tpu_torch import obs
+
+    c = obs.counters()
+    now = {"fused": c["resblock_launches"], "mega": c["mega_launches"]}
+    return now if since is None else {k: n - since[k] for k, n in now.items()}
+
+
 def _counted(what, fn, fused=0, mega=0):
-    """Run ``fn()`` with its standard output swallowed, both launch counters
-    set to 0 just before it and read once the card has finished; check them
+    """Run ``fn()`` with its standard output swallowed, counting the
+    launches from just before it until the card has finished; check them
     against ``fused`` residual-block and ``mega`` launches (each a number,
     or a function of ``fn``'s result). Returns (result, seconds, counts),
     the counts as the wrappers counted them."""
@@ -1675,15 +1685,12 @@ def _counted(what, fn, fused=0, mega=0):
 
     import torch
 
-    from diffsg_tpu_torch.ops import mega as mega_op
-    from diffsg_tpu_torch.ops import resblock
-
-    resblock.LAUNCHES = mega_op.LAUNCHES = 0
+    mark = launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         out = fn()
     torch.cuda.synchronize()
-    counts = {"fused": resblock.LAUNCHES, "mega": mega_op.LAUNCHES}
+    counts = launch_counts(mark)
     want = {"fused": fused(out) if callable(fused) else fused,
             "mega": mega(out) if callable(mega) else mega}
     check(counts == want, f"{what}: {want} launches wanted, counted {counts}")
@@ -1705,16 +1712,15 @@ def headline_phase(dev):
     omega 0 apart from the unguided one. Returns (fields, launches)."""
     import torch
 
-    from diffsg_tpu_torch.ops import mega, resblock
     from diffsg_tpu_torch.tools import co_guided, eval_nu_geo, headline
 
-    rows, launches, t_row = {}, {"fused": 0, "mega": 0}, [0.0]
+    rows, launches, t_row, mark = {}, {"fused": 0, "mega": 0}, [0.0], [{}]
 
     def on_row(row, metrics):
         torch.cuda.synchronize()
         T, blocks = _steps_and_blocks(row.ckpt)
         want = -(-int(metrics["n_samples"]) // 512) * row.eval_kw.get("best_of", 1) * T * blocks
-        counts = {"fused": resblock.LAUNCHES, "mega": mega.LAUNCHES}
+        counts = launch_counts(mark[0])
         check(counts == {"fused": want, "mega": 0},
               f"headline {row.name!r}: {want} fused launches wanted, counted {counts}")
         _add(launches, counts)
@@ -1722,15 +1728,17 @@ def headline_phase(dev):
                           "metrics": metrics,
                           "diff_over_tol": _within(f"headline {row.name!r}", metrics,
                                                    headline_constants(row.name))}
-        resblock.LAUNCHES = mega.LAUNCHES = 0
+        mark[0] = launch_counts()
         t_row[0] = time.perf_counter()
 
     runs = []
     for argv in HEADLINE_ARGV:
-        t_row[0] = time.perf_counter()
+        t_row[0], mark[0], before = time.perf_counter(), launch_counts(), dict(launches)
         # on_row takes each row's launches; none may follow the last row.
         printed, seconds, _ = _counted(f"headline {argv}",
-                                       lambda: headline.main(argv, on_row=on_row))
+                                       lambda: headline.main(argv, on_row=on_row),
+                                       fused=lambda _: launches["fused"] - before["fused"],
+                                       mega=lambda _: launches["mega"] - before["mega"])
         runs.append({"argv": argv, "rows": len(printed), "seconds": seconds})
     check(set(rows) == set(HEADLINE_SEEDS) | set(HEADLINE_EVAL),
           f"headline: rows {sorted(rows)}")
@@ -2177,7 +2185,8 @@ def mesh_phase(dev, solver, nu_solver, X, XN, serve, new_launches):
             torch.cuda.synchronize()
             capture_s[m] = time.perf_counter() - t1
             check(len(s_._graphs) == 1, f"mesh {name} {m}: one graph captured")
-            captured = next(iter(s_._graphs.values())).launches
+            counts = next(iter(s_._graphs.values())).counts
+            captured = (counts.get("resblock_launches", 0), counts.get("mega_launches", 0))
             check(captured == ((per_req, 0) if backend == "fused" else (0, per_req)),
                   f"mesh {name} {m}: the graph captured {captured} launches, not {per_req}")
         runs = []
@@ -2465,9 +2474,14 @@ def main() -> int:
     torch.set_grad_enabled(False)
     dev = torch.device("cuda", 0)
 
-    def zero_counts():
-        resblock.LAUNCHES = 0
-        mega.LAUNCHES = 0
+    launch_mark = {}
+
+    def start_count():
+        """Count the kernel launches from now on (``count_since``)."""
+        launch_mark.update(launch_counts())
+
+    def count_since():
+        return launch_counts(launch_mark)
 
     # -- device ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2706,13 +2720,13 @@ def main() -> int:
     t = torch.full((1,), 0.37, device=dev)
     mega_apply = unet_apply_fn(model, "mega")
     with torch.no_grad():
-        zero_counts()
+        start_count()
         fused = unet_forward_fused(model, y, t, cond, mask)
         torch.cuda.synchronize()
-        fwd_launches = resblock.LAUNCHES
+        fwd_launches = count_since()["fused"]
         megafwd = mega_apply(y, t, cond, mask)
         torch.cuda.synchronize()
-        mega_fwd_launches = mega.LAUNCHES
+        mega_fwd_launches = count_since()["mega"]
         plain = model(y, t, cond, mask)
         scale = float(plain.abs().max())
         fwd_err = float((fused - plain).abs().max())
@@ -2755,8 +2769,8 @@ def main() -> int:
 
     def serve(solve, seeds):
         """Requests timed on the host clock around a synchronize; the
-        launches are counted from 0 over exactly these requests."""
-        zero_counts()
+        launches are counted over exactly these requests."""
+        start_count()
         out = []
         for seed in seeds:
             torch.cuda.synchronize()
@@ -2764,7 +2778,8 @@ def main() -> int:
             P = solve(seed)
             torch.cuda.synchronize()
             out.append({"seed": seed, "s": time.perf_counter() - t0, "P": P})
-        return out, resblock.LAUNCHES, mega.LAUNCHES
+        n = count_since()
+        return out, n["fused"], n["mega"]
 
     def rate_per_s(reqs, B):
         timed = [r["s"] for r in reqs[1:]] or [reqs[0]["s"]]   # request 0 warms up
@@ -2882,7 +2897,7 @@ def main() -> int:
     ref_rng = np.random.default_rng(0)
     XJ = ref_rng.uniform(0, 1, (4096, 6)).astype(np.float32)
     init = ref_rng.normal(size=(4096, 5)).astype(np.float32)
-    zero_counts()
+    start_count()
     with torch.inference_mode():
         y0 = ddim_sample(unet_apply_fn(nu_model, "mega"), nu_solver.sched,
                          torch.tensor(XJ, device=dev), NU_OMEGA, 5, n_steps=NU_STEPS,
@@ -2890,7 +2905,8 @@ def main() -> int:
         dec = nu_solver.task.decode(y0, ncfg)
         rate = float(nu_rate(dec, torch.tensor(nu_solver.task.unnormalize_x(XJ, ncfg),
                                                dtype=torch.float32, device=dev)).mean())
-    check(mega.LAUNCHES == NU_STEPS, f"nu_vs_jax: {NU_STEPS} mega launches, {mega.LAUNCHES}")
+    n_mega = count_since()["mega"]
+    check(n_mega == NU_STEPS, f"nu_vs_jax: {NU_STEPS} mega launches, {n_mega}")
     rel = abs(rate - NU_JAX_MEAN_RATE) / NU_JAX_MEAN_RATE
     check(rel <= 1e-3, f"NU mean rate {rate} vs the JAX package's {NU_JAX_MEAN_RATE}")
     emit("nu_vs_jax", B=4096, mean_rate=rate, jax_mean_rate=NU_JAX_MEAN_RATE, rel_diff=rel)
@@ -2938,7 +2954,7 @@ def main() -> int:
     serve_nu_bf16_launches = bf16_counts["mega"]
     # The JAX package's bf16 answer on the nu_vs_jax inputs.
     jax_rates = {}
-    zero_counts()
+    start_count()
     for backend in ("mega", "plain"):
         y0 = production_y0(backend, torch.tensor(XJ, device=dev).to(torch.bfloat16),
                            init=torch.tensor(init, device=dev).to(torch.bfloat16))
@@ -2948,7 +2964,7 @@ def main() -> int:
         rel = abs(jax_rates[backend] - NU_JAX_BF16_MEAN_RATE) / NU_JAX_BF16_MEAN_RATE
         check(rel <= 1e-3, f"NU bf16 {backend} mean rate {jax_rates[backend]} vs the JAX "
                            f"package's {NU_JAX_BF16_MEAN_RATE}")
-    check(mega.LAUNCHES == NU_STEPS, f"nu bf16 vs jax: {NU_STEPS} mega launches")
+    check(count_since()["mega"] == NU_STEPS, f"nu bf16 vs jax: {NU_STEPS} mega launches")
     emit("serve_nu_bf16", B=NU_B, T=nu_solver.sched.T, steps=NU_STEPS, omega=NU_OMEGA,
          launches=serve_nu_bf16_launches,
          requests={k: public(v, "rate") for k, v in bf16_runs.items()},
@@ -2987,7 +3003,8 @@ def main() -> int:
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         check(len(graphed._graphs) == 1, f"{backend}: one graph captured")
-        captured = next(iter(graphed._graphs.values())).launches
+        counts = next(iter(graphed._graphs.values())).counts
+        captured = (counts.get("resblock_launches", 0), counts.get("mega_launches", 0))
         check(captured == ((per_req, 0) if backend == "fused" else (0, per_req)),
               f"{backend}: the graph captured {captured} launches, not {per_req}")
         runs = []
@@ -3201,7 +3218,7 @@ def main() -> int:
         return row
 
     def vs_jax(name, backend="mega"):
-        zero_counts()
+        start_count()
         q, _ = port_quality(name, 0, "cuda", backend)
         mean, tol = JAX_QUALITY[name]
         limit = SAME_NOISE_SHARE * tol
@@ -3211,7 +3228,7 @@ def main() -> int:
         return {"backend": backend, "rows": int(q.size), "mean": float(q.mean()),
                 "jax_mean": mean, "tol": tol, "limit": limit,
                 "diff_over_tol": abs(float(q.mean()) - mean) / tol,
-                "launches": mega.LAUNCHES if backend == "mega" else resblock.LAUNCHES}
+                "launches": count_since()["mega" if backend == "mega" else "fused"]}
 
     def public_row(row):
         return {k: v for k, v in row.items() if k != "_runs"}
@@ -3427,7 +3444,7 @@ def main() -> int:
             task = TASKS[spec["task"]]
             data = task.load(str(paths[spec["csv"]]), **spec.get("load_kw", {}))
             merge_multi_config(data.config, ck["metadata"], spec["task"].split("_", 1)[1])
-            zero_counts()
+            start_count()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             best_of = spec.get("best_of", 1)
@@ -3437,16 +3454,17 @@ def main() -> int:
             seconds = time.perf_counter() - t0
             n = data.X_test.shape[0]
             want = -(-n // 512) * best_of * ck["sched"].T * 27
-            check(resblock.LAUNCHES == want and mega.LAUNCHES == 0,
-                  f"eval {name}: {want} fused launches, counted {resblock.LAUNCHES} and "
-                  f"{mega.LAUNCHES} mega")
-            new_launches["fused"] += resblock.LAUNCHES
+            got = count_since()
+            check(got == {"fused": want, "mega": 0},
+                  f"eval {name}: {want} fused launches, counted {got['fused']} and "
+                  f"{got['mega']} mega")
+            new_launches["fused"] += got["fused"]
             check(metrics["n_samples"] == n, f"eval {name}: {metrics['n_samples']} rows, not {n}")
             for k, (mean, tol) in constants[name].items():
                 check(np.isfinite(metrics[k]) and abs(metrics[k] - mean) <= tol,
                       f"eval {name}: {k} {metrics[k]} vs the JAX package's {mean} (+-{tol})")
             out[name] = {"rows": n, "omega": spec["omega"], "seconds": seconds,
-                         "rows_per_s": n / seconds, "launches": resblock.LAUNCHES,
+                         "rows_per_s": n / seconds, "launches": got["fused"],
                          "metrics": metrics, "jax": constants[name],
                          "diff_over_tol": {k: abs(metrics[k] - m) / t
                                            for k, (m, t) in constants[name].items()}}

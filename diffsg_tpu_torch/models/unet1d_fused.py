@@ -115,14 +115,12 @@ class FusedApplyFn:
     arithmetic is the per-call forward's, and so are the answers, bit for
     bit.
 
-    The table is keyed on the time weights' storage and version counters
-    (storage alone for inference tensors, which count no versions; the
-    samplers' callers build such weights for one evaluation).
-    :meth:`refresh` recomputes a stale table in place, so a captured graph
-    that reads its entries reads the new values; ``prepare`` calls it, and
-    so must whoever replays such a graph after the weights may have
-    changed. Steps that read the prologue and the table are counted in
-    ``obs``'s ``hoisted_steps`` (inside a capture, for the replays to add).
+    The table holds the time weights as they were when this object was
+    built, as ``mega``'s packed weights do: ``prepare`` raises ValueError
+    once their storage or version counters have changed (storage alone for
+    inference tensors, which count no versions). Steps that read the
+    prologue and the table are counted in ``obs``'s ``hoisted_steps``
+    (inside a capture, for the replays to add).
 
     ``pad_cond`` (a multi-task face's ``_CondAdapter.pad_cond``) maps the
     condition before either path."""
@@ -152,41 +150,22 @@ class FusedApplyFn:
         st = swish(self.model.time_emb(t_norm))
         return [res.time_emb(st) for res in self._blocks]
 
-    def refresh(self) -> bool:
-        """Whether the table holds the current weights' values: a stale one
-        is recomputed in place, from each key's ``t_norm``, outside a
-        capture; inside one it stays stale and this returns False."""
-        key = self._weights_key()
-        if key == self._key:
-            return True
-        if _capturing(self._time_params[0]):
-            return False
-        dev = self._time_params[0].device
-        # Entries made under a Solver's inference mode take in-place updates
-        # only inside one.
-        with torch.inference_mode():
-            for (i, T), rows in self._table.items():
-                t_norm = torch.full((1,), i, dtype=torch.float32, device=dev) / T
-                for row, new in zip(rows, self._time_projections(t_norm)):
-                    row.copy_(new)
-        self._key = key
-        return True
-
     def prepare(self, cond: torch.Tensor, cond_mask: torch.Tensor
                 ) -> Callable[[torch.Tensor, torch.Tensor, Tuple[int, int]], torch.Tensor]:
         """The condition prologue; returns ``step(y, t_norm, key)``."""
+        if self._weights_key() != self._key:
+            raise ValueError("the time weights changed since this apply function was built; "
+                             "build a new one with unet_apply_fn")
         if self.pad_cond is not None:
             cond = self.pad_cond(cond)
         _check_fused(self.model, cond=cond, cond_mask=cond_mask)
         sc = swish(cond * cond_mask)
         c_projs = [res.cond_emb(sc) for res in self._blocks]
-        current = self.refresh()
 
         def step(y: torch.Tensor, t_norm: torch.Tensor, key: Tuple[int, int]) -> torch.Tensor:
             _check_fused(self.model, y=y, t=t_norm)
-            capturing = _capturing(y)
-            t_projs = self._table.get(key) if current else None
-            if t_projs is None and current and not capturing:
+            t_projs = self._table.get(key)
+            if t_projs is None and not _capturing(y):
                 t_projs = self._table[key] = self._time_projections(t_norm)
             if t_projs is None:
                 st = swish(self.model.time_emb(t_norm))

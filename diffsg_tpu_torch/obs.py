@@ -15,9 +15,9 @@ while a ``torch.profiler`` records. Off, a span costs one test of a flag,
 with no clock read and no allocation. They are kept in a ring of the newest
 :data:`RING`. Set-up spans (``load``, ``capture``, ``kernels.build``,
 ``kernels.load``) are few a Solver and always recorded, apart from the
-ring. Counters (:func:`counters`) are always on; a count made while a CUDA
-graph is captured (:func:`count`) is kept for the replays to add
-(:func:`captured`, :func:`add`).
+ring. Counters (:func:`counters`) are always on, the kernel wrappers'
+launches among them; a count made while a CUDA graph is captured
+(:func:`count`) is kept for the replays to add (:func:`captured`, :func:`add`).
 
 Example (an operator's look at a serving process):
 
@@ -75,7 +75,7 @@ class Counters:
 
     __slots__ = ("requests", "rows", "bucket_rows", "replays", "captures", "eager", "bytes_in",
                  "bytes_out", "hoisted_steps", "x0_steps", "decode_candidates",
-                 "mega_row_launches")
+                 "resblock_launches", "mega_launches", "mega_row_launches")
 
     def __init__(self):
         for name in self.__slots__:
@@ -95,9 +95,10 @@ class Counters:
 #: output the sampler turned into epsilon; decode_candidates: candidate rows
 #: that a condition-reading decoder scored (``tasks.msr``'s families: 6
 #: softmax temperatures, and 5 simplex projections besides where it selects
-#: by projection); mega_row_launches: launches of the mega kernel's
-#: row-resident design (``ops.mega.mega_path``), eager or by a graph's
-#: replay.
+#: by projection); resblock_launches, mega_launches: launches of the
+#: residual-block kernel (``ops.resblock``) and of the mega kernel
+#: (``ops.mega``), eager or by a graph's replay; mega_row_launches: those of
+#: the mega kernel's row-resident design (``ops.mega.mega_path``).
 COUNTS = Counters()
 #: The same counts made while a CUDA graph was captured: that work runs at
 #: each replay, not then, so whoever replays the graph adds them.
@@ -214,12 +215,5 @@ def add(counts: Dict[str, int]) -> None:
 
 
 def counters() -> Dict[str, int]:
-    """A snapshot of :data:`COUNTS`, with the kernel wrappers' own counters
-    (``ops.resblock`` and ``ops.mega``: ``LAUNCHES`` run on the card,
-    ``CAPTURED`` recorded into graphs)."""
-    from .ops import mega, resblock
-
-    out = {name: getattr(COUNTS, name) for name in Counters.__slots__}
-    out.update(resblock_launches=resblock.LAUNCHES, resblock_captured=resblock.CAPTURED,
-               mega_launches=mega.LAUNCHES, mega_captured=mega.CAPTURED)
-    return out
+    """A snapshot of :data:`COUNTS`."""
+    return {name: getattr(COUNTS, name) for name in Counters.__slots__}

@@ -54,13 +54,6 @@ if TYPE_CHECKING:  # the models package imports this module
 
 _LN_EPS = 1e-5
 
-#: Number of kernel launches in this process; only the CUDA path counts.
-LAUNCHES = 0
-#: Launches recorded into a CUDA graph under capture: the kernel does not
-#: run then, so they are not in ``LAUNCHES``; whoever replays the graph adds
-#: them there per replay (``serve.Solver``).
-CAPTURED = 0
-
 # Layer kinds of the table.
 FEATURE_PROJ, BLOCK, RESAMPLE, HEAD = 0, 1, 2, 3
 # Layer flags.
@@ -601,12 +594,9 @@ def launch_mega(packed: MegaParams, y: torch.Tensor, sc: torch.Tensor, st: torch
     if err != 0:
         msg = lib.diffsg_cuda_error_string(err).decode()
         raise RuntimeError(f"mega kernel launch failed: {msg} ({err})")
-    global LAUNCHES, CAPTURED, _LAST
+    global _LAST
     _LAST = {"path": path, "lanes": lanes} if path == "rows" else {"path": path}
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED += 1
-    else:
-        LAUNCHES += 1
+    obs.count("mega_launches", 1, y)
     if path == "rows":
         obs.count("mega_row_launches", 1, y)
     return out

@@ -30,16 +30,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import obs
 from . import _build
 
 _LN_EPS = 1e-5
-
-#: Number of kernel launches in this process; only the CUDA path counts.
-LAUNCHES = 0
-#: Launches recorded into a CUDA graph under capture: the kernel does not
-#: run then, so they are not in ``LAUNCHES``; whoever replays the graph adds
-#: them there per replay (``serve.Solver``).
-CAPTURED = 0
 
 #: The kernel's two paths (``last_launch()["variant"]``).
 NARROW, WIDE = "narrow", "wide"
@@ -295,11 +289,7 @@ def fused_residual_block(
     if err != 0:
         msg = lib.diffsg_cuda_error_string(err).decode()
         raise RuntimeError(f"resblock kernel launch failed: {msg} ({err})")
-    global LAUNCHES, CAPTURED
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED += 1
-    else:
-        LAUNCHES += 1
+    obs.count("resblock_launches", 1, x)
     return out
 
 

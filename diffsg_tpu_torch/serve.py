@@ -63,7 +63,6 @@ from .diffusion.ddim import ddim_sample, respaced_steps
 from .diffusion.ddpm import cfg_sample
 from .diffusion.schedule import Schedule
 from .models.unet1d_fused import unet_apply_fn
-from .ops import mega, resblock
 from .parallel.mesh import Mesh, all_gather_rows, shard_params
 from .tasks import TASKS
 from .tasks.base import Task, loaded_model, refine_solutions, select_best
@@ -136,7 +135,6 @@ class _Graph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     inputs: _Inputs
     out: torch.Tensor
-    launches: Tuple[int, int]    # resblock and mega launches per replay
     counts: Dict[str, int]       # ``obs`` counts per replay (``obs.captured``)
     marks: Marks                 # the timing events the graph records
 
@@ -147,7 +145,8 @@ class Solver:
     ``backend`` picks the denoiser forward: "fused" (residual blocks through
     the CUDA kernel), "mega" (the whole forward as one launch of the
     whole-network kernel) or "plain"; on the CPU the kernels' plain
-    versions run.
+    versions run. A Solver serves the weights it was built with: "mega"
+    packs them and "fused" tabulates the time projections once.
 
     ``buckets``: optional batch sizes. A request of n rows is padded up to
     the smallest bucket that holds it by repeating its last row, and a
@@ -427,14 +426,10 @@ class Solver:
                 g = self._graphs[spec] = self._capture(spec, inputs)
                 counts.captures += 1
                 path = "capture"
-            elif g.counts.get("hoisted_steps"):
-                self._apply.refresh()   # the graph reads the time table
             g.graph.replay()
             counts.replays += 1
             obs.add(g.counts)
             marks = g.marks
-            resblock.LAUNCHES += g.launches[0]
-            mega.LAUNCHES += g.launches[1]
             # A copy, so the next replay cannot overwrite a pending result.
             out = g.out[:n].clone()
         if tr:
@@ -555,11 +550,10 @@ class Solver:
         (cuBLAS and the kernels' first-launch set-up happen outside the
         capture; three times where it refines, so that autograd's backward
         is warm too, as PyTorch's whole-network capture recipe does), and
-        those launches count. Launches recorded during the
-        capture do not run, so the wrappers keep them out of ``LAUNCHES``;
-        their number is added per replay instead, as are the ``obs`` counts
-        made inside it (``obs.captured``). On a mesh the graph
-        captures the program's collectives too. Recorded as the set-up span
+        those launches count. Work recorded during the capture does not run,
+        so ``obs.count`` keeps its counts, kernel launches among them, apart
+        (``obs.captured``); they are added per replay instead. On a mesh the
+        graph captures the program's collectives too. Recorded as the set-up span
         ``capture``, with children ``capture.eager`` and ``capture.graph``."""
         dev = self.device
         marks: Marks = []
@@ -572,12 +566,11 @@ class Solver:
                         self._run(spec, inputs)
                 torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            before = (resblock.CAPTURED, mega.CAPTURED, obs.captured())
+            before = obs.captured()
             try:
                 with obs.setup("capture.graph"), torch.cuda.graph(graph):
                     out = self._run(spec, inputs, marks)
             except Exception as e:
                 raise RuntimeError(f"CUDA graph capture failed for {spec}: {e}") from e
-        counts = {k: n - before[2][k] for k, n in obs.captured().items() if n != before[2][k]}
-        return _Graph(graph, inputs, out,
-                      (resblock.CAPTURED - before[0], mega.CAPTURED - before[1]), counts, marks)
+        counts = {k: n - before[k] for k, n in obs.captured().items() if n != before[k]}
+        return _Graph(graph, inputs, out, counts, marks)

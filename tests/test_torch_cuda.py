@@ -65,10 +65,10 @@ def test_cuda_kernel_matches_reference(rows, din, dout, t_kind):
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     args = to_torch(block_inputs(rows, din, dout, t_kind, seed=rows + din), device="cuda")
-    before = resblock.LAUNCHES
+    before = obs.counters()["resblock_launches"]
     out = fused_residual_block(*args)
     torch.cuda.synchronize()
-    assert resblock.LAUNCHES == before + 1
+    assert obs.counters()["resblock_launches"] == before + 1
     # f32, TF32 off, differing only in summation order over <= 256 terms.
     torch.testing.assert_close(out, resblock_reference(*args), rtol=0, atol=1e-4)
 
@@ -218,7 +218,7 @@ def test_cuda_mega_matches_reference(net, rows, dtype, tile_rows):
     cd = None if dtype == torch.float32 else dtype
     inputs = inputs if cd is None else [a.to(cd) for a in inputs]
     packed = pack_params(model, dtype)
-    before = mega.LAUNCHES
+    before = obs.counters()["mega_launches"]
     with torch.no_grad():
         if tile_rows:
             out = launch_mega(packed, *mega_kernel_inputs(model, *inputs, cd), tile_rows)
@@ -226,7 +226,7 @@ def test_cuda_mega_matches_reference(net, rows, dtype, tile_rows):
             out = unet_forward_mega(model, *inputs, compute_dtype=cd, packed=packed)
         torch.cuda.synchronize()
         ref = unet_forward_mega_reference(model, *inputs, compute_dtype=cd)
-    assert mega.LAUNCHES == before + 1
+    assert obs.counters()["mega_launches"] == before + 1
     assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
     # float32: summation order only, through 37 layers (the forward
     # tolerance, 1e-4 of the output's magnitude). bf16: the same rounding
@@ -244,20 +244,22 @@ def test_cuda_mega_rows_matches_reference(net, rows):
     """The row-resident kernel (a warp a row up to 4,096 rows, a thread a row
     above; ragged last tiles at 37, 4,097, 70,001) against the plain version
     under the float32 tolerance, and against the tile kernel forced through
-    ``tile_rows`` on the same inputs; one launch, counted by ``mega.LAUNCHES``
-    and ``obs``'s ``mega_row_launches``."""
+    ``tile_rows`` on the same inputs; one launch, counted by ``obs``'s
+    ``mega_launches`` and ``mega_row_launches``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     model, inputs = mega_inputs(net, rows, seed=rows, device="cuda")
     packed = pack_params(model)
     assert mega.mega_path(packed) == "rows"
-    before, rows_before = mega.LAUNCHES, obs.counters()["mega_row_launches"]
+    before = obs.counters()
     with torch.no_grad():
         out = unet_forward_mega(model, *inputs, packed=packed)
         torch.cuda.synchronize()
         info = mega.last_launch()
-        assert (mega.LAUNCHES, obs.counters()["mega_row_launches"]) == (before + 1, rows_before + 1)
+        after = obs.counters()
+        assert (after["mega_launches"], after["mega_row_launches"]) == (
+            before["mega_launches"] + 1, before["mega_row_launches"] + 1)
         ref = unet_forward_mega_reference(model, *inputs)
         tile = launch_mega(packed, *mega_kernel_inputs(model, *inputs), 32)
         torch.cuda.synchronize()
@@ -363,12 +365,12 @@ def test_cuda_mega_follows_its_input_type():
     model, inputs = mega_inputs("nu", 1000, seed=5, device="cuda")
     low = copy.deepcopy(model).to(torch.bfloat16)
     bf = [a.bfloat16() for a in inputs]
-    before = mega.LAUNCHES
+    before = obs.counters()["mega_launches"]
     with torch.no_grad():
         out = unet_forward_mega(low, *bf)
         torch.cuda.synchronize()
         ref = unet_forward_mega_reference(low, *bf)
-    assert mega.LAUNCHES == before + 1
+    assert obs.counters()["mega_launches"] == before + 1
     assert out.dtype == ref.dtype == torch.bfloat16
     # The bf16 tolerance of test_cuda_mega_matches_reference.
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
@@ -399,15 +401,16 @@ def test_cuda_graph_replay_equals_eager_and_counts_launches(backend, per_request
     eager = Solver(graphed.task, graphed.model, graphed.sched, graphed.config, backend=backend,
                    buckets=(64, 256), graphs=False)
     X = np.random.default_rng(0).uniform(0, 1, (50, 3)).astype(np.float32)
-    counter = resblock if backend == "fused" else mega
-    launches, captured = counter.LAUNCHES, counter.CAPTURED
+    name = "resblock_launches" if backend == "fused" else "mega_launches"
+    launches, captured = obs.counters()[name], obs.captured()[name]
     first = graphed.solve(X, seed=1)         # warm run, capture, replay
     assert len(graphed._graphs) == 1
-    assert counter.CAPTURED == captured + per_request
-    assert counter.LAUNCHES == launches + 2 * per_request    # the warm run and one replay
-    launches = counter.LAUNCHES
+    assert obs.captured()[name] == captured + per_request
+    assert obs.counters()[name] == launches + 2 * per_request    # the warm run and one replay
+    launches = obs.counters()[name]
     again = graphed.solve(X, seed=1)
-    assert counter.LAUNCHES == launches + per_request and counter.CAPTURED == captured + per_request
+    assert obs.counters()[name] == launches + per_request
+    assert obs.captured()[name] == captured + per_request
     np.testing.assert_array_equal(first, again)
     np.testing.assert_array_equal(first, eager.solve(X, seed=1))
     # omega is a runtime input of the graph: another scale, the same graph.
@@ -462,12 +465,12 @@ def test_cuda_fused_forward_matches_plain(net, blocks):
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     model, inputs = mega_inputs(net, 4096, seed=3, device="cuda")
-    before = resblock.LAUNCHES
+    before = obs.counters()["resblock_launches"]
     with torch.no_grad():
         out = unet_forward_fused(model, *inputs)
         torch.cuda.synchronize()
         ref = model(*inputs)
-    assert resblock.LAUNCHES == before + blocks
+    assert obs.counters()["resblock_launches"] == before + blocks
     # The forward tolerance: 1e-4 of the output's magnitude.
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
@@ -544,14 +547,14 @@ def test_cuda_multi_graph_replay_equals_eager_and_counts_launches(ckpt, face, ba
                    buckets=(64,), graphs=False)
     C = graphed.task.cond_dim(graphed.config)
     X = np.random.default_rng(6).uniform(0.2, 1, (50, C)).astype(np.float32)
-    counter = resblock if backend == "fused" else mega
-    launches, captured = counter.LAUNCHES, counter.CAPTURED
+    name = "resblock_launches" if backend == "fused" else "mega_launches"
+    launches, captured = obs.counters()[name], obs.captured()[name]
     first = graphed.solve(X, omega=0.5, seed=1)
     assert len(graphed._graphs) == 1
-    assert counter.CAPTURED == captured + per_request
-    assert counter.LAUNCHES == launches + 2 * per_request
+    assert obs.captured()[name] == captured + per_request
+    assert obs.counters()[name] == launches + 2 * per_request
     again = graphed.solve(X, omega=0.5, seed=1)
-    assert counter.LAUNCHES == launches + 3 * per_request
+    assert obs.counters()[name] == launches + 3 * per_request
     np.testing.assert_array_equal(first, again)
     np.testing.assert_array_equal(first, eager.solve(X, omega=0.5, seed=1))
     assert bool(np.isfinite(first).all()) and first.shape[0] == 50
@@ -585,13 +588,13 @@ def test_cuda_multi_forward_matches_plain_and_counts_launches(ckpt, face, backen
                      device="cuda")
     m = (torch.arange(rows, device="cuda") >= rows // 2).float()[:, None]
     t = torch.tensor([0.37], device="cuda")
-    counter = resblock if backend == "fused" else mega
-    before = counter.LAUNCHES
+    name = "resblock_launches" if backend == "fused" else "mega_launches"
+    before = obs.counters()[name]
     with torch.no_grad():
         out = unet_apply_fn(model, backend)(y, t, c, m)
         torch.cuda.synchronize()
         ref = unet_apply_fn(model, "plain")(y, t, c, m)
-    assert counter.LAUNCHES == before + per_forward
+    assert obs.counters()[name] == before + per_forward
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 
@@ -783,11 +786,12 @@ def test_cuda_zoo_faces_kernels_match_plain(face):
     t = torch.tensor([0.37], device="cuda")
     with torch.no_grad():
         ref = unet_apply_fn(model, "plain")(y, t, c, m)
-        for backend, counter, per_forward in (("fused", resblock, 27), ("mega", mega, 1)):
-            before = counter.LAUNCHES
+        for backend, name, per_forward in (("fused", "resblock_launches", 27),
+                                           ("mega", "mega_launches", 1)):
+            before = obs.counters()[name]
             out = unet_apply_fn(model, backend)(y, t, c, m)
             torch.cuda.synchronize()
-            assert counter.LAUNCHES == before + per_forward, backend
+            assert obs.counters()[name] == before + per_forward, backend
             torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 

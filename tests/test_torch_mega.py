@@ -15,6 +15,7 @@ from diffsg_tpu.models import UNet1D as JaxUNet1D, unet_msr as jax_unet_msr, une
 from diffsg_tpu.models.unet1d_pallas import unet_topology as jax_topology
 from diffsg_tpu.ops.pallas_mega import unet_forward_mega as jax_mega
 from diffsg_tpu.utils import load_checkpoint as jax_load_checkpoint
+from diffsg_tpu_torch import obs
 from diffsg_tpu_torch.models import UNet1D, unet_apply_fn, unet_msr, unet_nu
 from diffsg_tpu_torch.ops import mega
 from diffsg_tpu_torch.ops.mega import pack_params, unet_forward_mega, unet_forward_mega_reference
@@ -344,11 +345,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_cpu_wrapper_is_the_reference_and_does_not_count():
     model = unet_nu(3)
     inputs = _torch(_inputs(20, 5, 6, seed=2))
-    before = mega.LAUNCHES
+    before = obs.counters()["mega_launches"]
     with torch.no_grad():
         out = unet_apply_fn(model, "mega")(*inputs)
         ref = unet_forward_mega_reference(model, *inputs)
-    assert mega.LAUNCHES == before
+    assert obs.counters()["mega_launches"] == before
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 

@@ -19,8 +19,8 @@ from diffsg_tpu.serve import Solver as JaxSolver
 from diffsg_tpu.tasks import TASKS as JAX_TASKS
 from diffsg_tpu.tasks import multi as jax_multi
 from diffsg_tpu.utils import load_checkpoint as jax_load_checkpoint
+from diffsg_tpu_torch import obs
 from diffsg_tpu_torch.models import unet_apply_fn
-from diffsg_tpu_torch.ops import mega, resblock
 from diffsg_tpu_torch.serve import Solver
 from diffsg_tpu_torch.tasks import TASKS, multi
 from diffsg_tpu_torch.utils import params_from_jax
@@ -245,9 +245,10 @@ def test_multi_solve_counts_no_launch_on_the_cpu(backend):
                                     backend=backend)
     plain = Solver(solver.task, solver.model, solver.sched, solver.config, backend="plain")
     X = np.random.default_rng(3).uniform(0, 1, (40, 3)).astype(np.float32)
-    before = (resblock.LAUNCHES, mega.LAUNCHES)
+    before = obs.counters()
     got = solver.solve(X, omega=0.5, seed=2)
-    assert (resblock.LAUNCHES, mega.LAUNCHES) == before
+    after = obs.counters()
+    assert all(after[k] == before[k] for k in ("resblock_launches", "mega_launches"))
     np.testing.assert_allclose(got, plain.solve(X, omega=0.5, seed=2), rtol=0, atol=1e-3)
     np.testing.assert_allclose(got.sum(1), solver.config["W"], rtol=1e-5)
 

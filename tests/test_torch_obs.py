@@ -16,7 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from diffsg_tpu_torch import obs
-from diffsg_tpu_torch.ops import _build, mega, resblock
+from diffsg_tpu_torch.ops import _build
 from diffsg_tpu_torch.serve import Solver, device_ms
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -115,10 +115,8 @@ def test_off_by_default_counters_advance(solvers):
     assert d["bytes_in"] == 4 * ((8 + 64) * (2 * solver._C + 1) + 2)
     assert 100.0 * (d["bucket_rows"] - d["rows"]) / d["bucket_rows"] == pytest.approx(
         100.0 * 47 / 72)
-    assert (after["resblock_launches"], after["mega_launches"]) == (resblock.LAUNCHES,
-                                                                    mega.LAUNCHES)
-    assert (after["resblock_captured"], after["mega_captured"]) == (resblock.CAPTURED,
-                                                                    mega.CAPTURED)
+    assert d["resblock_launches"] == 0 and d["mega_launches"] == 0   # the CPU: no kernel
+    assert {"resblock_launches", "mega_launches"} <= obs.captured().keys()
 
 
 def test_eager_fused_solves_count_hoisted_steps(solvers):

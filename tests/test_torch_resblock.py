@@ -9,6 +9,7 @@ import torch
 import jax.numpy as jnp
 
 from diffsg_tpu.ops.pallas_kernels import fused_residual_block as jax_fused
+from diffsg_tpu_torch import obs
 from diffsg_tpu_torch.models import UNet1D, unet_msr, unet_nu
 from diffsg_tpu_torch.ops import resblock
 from diffsg_tpu_torch.ops.resblock import (SMEM_MAX, fused_residual_block, resblock_grid,
@@ -31,9 +32,9 @@ def test_reference_matches_pallas(rows, din, dout, t_kind):
 
 def test_cpu_wrapper_is_the_reference_and_does_not_count():
     args = to_torch(block_inputs(37, 16, 8, "row", seed=3))
-    before = resblock.LAUNCHES
+    before = obs.counters()["resblock_launches"]
     out = fused_residual_block(*args)
-    assert resblock.LAUNCHES == before
+    assert obs.counters()["resblock_launches"] == before
     torch.testing.assert_close(out, resblock_reference(*args), rtol=0, atol=0)
 
 

@@ -205,19 +205,25 @@ def test_fused_prepared_path_equals_per_call(both, sampler, B, masked, skip):
     assert len(fused._table) == n
 
 
-def test_fused_time_table_follows_weight_updates(both):
-    """An in-place update of a block's ``time_emb`` kernel, then of the time
-    MLP's, reaches the next sample through the prepared path: the time table
-    is recomputed, not read stale."""
+def test_fused_prepare_refuses_changed_time_weights(both):
+    """The time table holds the time weights as the apply function was built
+    with them: after an in-place update of a block's ``time_emb`` kernel, then
+    of the time MLP's bias, ``prepare`` raises ValueError, and a new apply
+    function on the updated model answers as the per-call path does."""
     _, sched, model, _ = both
     model = copy.deepcopy(model)
     cond, init, steps = (torch.from_numpy(a) for a in _noise(6, 100, seed=11))
+    mask = torch.ones(6, 1)
     fused = unet_apply_fn(model, "fused")
-    first = _sample("ddim", fused, sched, cond, init, steps, None, False)
-    last = first
+    last = _sample("ddim", fused, sched, cond, init, steps, None, False)
     for p in (model.down[0].res.time_emb.kernel, model.time_emb.lin1.bias):
         with torch.no_grad():
             p.mul_(1.5)
+        with pytest.raises(ValueError, match="time weights changed"):
+            fused.prepare(cond, mask)
+        with pytest.raises(ValueError, match="time weights changed"):
+            _sample("ddim", fused, sched, cond, init, steps, None, False)
+        fused = unet_apply_fn(model, "fused")
         got = _sample("ddim", fused, sched, cond, init, steps, None, False)
         assert torch.equal(got, _sample("ddim", _per_call(fused), sched, cond, init, steps,
                                         None, False))

@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from diffsg_tpu_torch import obs
 from diffsg_tpu_torch.diffusion import ddim_sample
 from diffsg_tpu_torch.models import unet_apply_fn
-from diffsg_tpu_torch.ops import resblock
 from diffsg_tpu_torch.serve import Solver
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -35,9 +35,9 @@ def _conditions(B, seed=0):
 def test_solve_is_feasible_and_seed_deterministic(solver):
     X = _conditions(16)
     W = solver.config["W"]
-    before = resblock.LAUNCHES
+    before = obs.counters()["resblock_launches"]
     P = solver.solve(X, seed=3)
-    assert resblock.LAUNCHES == before  # the CPU path launches no kernel
+    assert obs.counters()["resblock_launches"] == before  # the CPU path launches no kernel
     assert P.shape == (16, 3) and np.isfinite(P).all() and (P >= 0).all()
     np.testing.assert_allclose(P.sum(axis=1), W, rtol=0, atol=1e-4 * W)
     np.testing.assert_array_equal(solver.solve(X, seed=3), P)
